@@ -1,0 +1,20 @@
+"""DepthNet, PoseNet and their ResNet encoder (NCHW inside)."""
+
+from deep_visual_slam_torch.models.resnet import BasicBlock, ResNetEncoder
+from deep_visual_slam_torch.models.depthnet import (
+    ConvBlock,
+    DepthDecoder,
+    DepthNet,
+    ReflectConv3x3,
+)
+from deep_visual_slam_torch.models.posenet import PoseNet
+
+__all__ = [
+    "BasicBlock",
+    "ResNetEncoder",
+    "ConvBlock",
+    "DepthDecoder",
+    "DepthNet",
+    "ReflectConv3x3",
+    "PoseNet",
+]

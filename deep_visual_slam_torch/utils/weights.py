@@ -1,0 +1,98 @@
+"""Carry JAX variables into the port's ``state_dict``s.
+
+The inverse of the JAX package's ``utils/torch_weights.py``
+(``convert_depthnet``, ``convert_posenet``): the input is the JAX
+``{"params", "batch_stats"}`` tree as nested dicts of numpy arrays, the
+output the port's ``state_dict`` in the reference torch naming. Conv
+kernels go from ``[kh, kw, I, O]`` to ``[O, I, kh, kw]``; BatchNorm
+``scale/bias/mean/var`` become ``weight/bias/running_mean/running_var``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from deep_visual_slam_torch.models.resnet import STAGE_SIZES
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _kernel(k) -> torch.Tensor:
+    """flax ``[kh, kw, I, O]`` -> torch ``[O, I, kh, kw]``."""
+    return _t(np.asarray(k).transpose(3, 2, 0, 1))
+
+
+def _conv(out: Dict, prefix: str, p: Mapping) -> None:
+    out[f"{prefix}.weight"] = _kernel(p["kernel"])
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _bn(out: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
+    out[f"{prefix}.weight"] = _t(p["scale"])
+    out[f"{prefix}.bias"] = _t(p["bias"])
+    out[f"{prefix}.running_mean"] = _t(s["mean"])
+    out[f"{prefix}.running_var"] = _t(s["var"])
+    out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _encoder(out: Dict, params: Mapping, stats: Mapping, num_layers: int) -> None:
+    """JAX ``ResNetEncoder`` variables -> ``encoder.encoder.*``."""
+    pre = "encoder.encoder"
+    _conv(out, f"{pre}.conv1", params["Conv_0"])
+    _bn(out, f"{pre}.bn1", params["BatchNorm_0"], stats["BatchNorm_0"])
+    block_i = 0
+    for stage, n_blocks in enumerate(STAGE_SIZES[num_layers]):
+        for b in range(n_blocks):
+            name = f"BasicBlock_{block_i}"
+            bp, bs = params[name], stats[name]
+            t = f"{pre}.layer{stage + 1}.{b}"
+            for ci in range(2):
+                _conv(out, f"{t}.conv{ci + 1}", bp[f"Conv_{ci}"])
+                _bn(out, f"{t}.bn{ci + 1}", bp[f"BatchNorm_{ci}"],
+                    bs[f"BatchNorm_{ci}"])
+            if "Conv_2" in bp:
+                _conv(out, f"{t}.downsample.0", bp["Conv_2"])
+                _bn(out, f"{t}.downsample.1", bp["BatchNorm_2"], bs["BatchNorm_2"])
+            block_i += 1
+
+
+def depthnet_from_jax(variables: Mapping, num_layers: int = 18) -> Dict[str, torch.Tensor]:
+    """JAX ``DepthNet`` variables -> the port's ``DepthNet`` ``state_dict``.
+
+    Decoder indices: 0..9 = ``upconv_{i}_{j}`` for i = 4..0, 10..13 =
+    ``dispconv_{0..3}``, then 14 = ``uncconv_0`` where the tree has one.
+    """
+    params, stats = variables["params"], variables["batch_stats"]
+    out: Dict[str, torch.Tensor] = {}
+    _encoder(out, params["encoder"], stats["encoder"], num_layers)
+    dec = params["decoder"]
+    idx = 0
+    for i in range(4, -1, -1):
+        for j in range(2):
+            _conv(out, f"decoder.{idx}.conv.conv",
+                  dec[f"upconv_{i}_{j}"]["ReflectConv3x3_0"]["Conv_0"])
+            idx += 1
+    heads = [f"dispconv_{s}" for s in range(4)]
+    if "uncconv_0" in dec:
+        heads.append("uncconv_0")
+    for name in heads:
+        _conv(out, f"decoder.{idx}.conv", dec[name]["Conv_0"])
+        idx += 1
+    return out
+
+
+def posenet_from_jax(variables: Mapping, num_layers: int = 18) -> Dict[str, torch.Tensor]:
+    """JAX ``PoseNet`` variables -> the port's ``PoseNet`` ``state_dict``
+    (``net.0`` squeeze, ``net.1``/``net.2`` pose convs, ``net.3`` output)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: Dict[str, torch.Tensor] = {}
+    _encoder(out, params["encoder"], stats["encoder"], num_layers)
+    for i, name in enumerate(("squeeze", "pose_0", "pose_1", "pose_2")):
+        _conv(out, f"net.{i}", params[name])
+    return out
