@@ -10,14 +10,22 @@ the run with a non-zero exit code and no result line:
 1. The card: its name and power limit (``nvidia-smi``), the TF32 settings,
    and the build of every kernel from ``deep_visual_slam_torch/csrc``.
 2. Kernel K1 (the SSIM+L1 reprojection map) against its plain PyTorch
-   version on the card, at the eval step's [16, 480, 640, 3], a ragged
+   version on the card, at the step's [16, 480, 640, 3], a ragged
    [2, 37, 53, 3] and an all-zero image (SSIM denominator C1*C2): max abs
    difference, median times and the memory bound.
-3. Serving: ``Networks`` at 480x640, B=1, bf16 on 20 synthetic frames
+3. K1's backward kernel against the plain version's autograd at the same
+   three inputs: dL/dpred and dL/dtarget, median times and the bound.
+4. Serving: ``Networks`` at 480x640, B=1, bf16 on 20 synthetic frames
    through ``depth``, ``pose`` and ``step``.
-4. Evaluation: the eval step, first at a small size in fp32 against the
+5. Evaluation: the eval step, first at a small size in fp32 against the
    same step on the CPU, then ``make_vo_eval_step`` at the config's
    B=16 x 480x640 in bf16, with K1's launch count per step.
+6. Training: one train step at a small size in fp32 against the same step
+   on the CPU (losses, the gradient of every parameter, updated weights),
+   then ``make_vo_train_step`` at the config's B=16 x 480x640 in bf16 for 4
+   steps (10 K1 forward and 8 backward launches a step) and one
+   ``make_stereo_train_step`` step (5 and 4), which must leave PoseNet as
+   it was.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
@@ -62,6 +70,29 @@ CARD_RATES = {  # name fragment: (bytes/s, fp32 FLOP/s)
 # the blend once per pixel (5).
 K1_OPS_PER_CHANNEL = 9 * 8 + 33
 K1_OPS_PER_PIXEL = 5
+# K1's backward against the plain version's autograd: fp32 both, sums in
+# other orders (the plain reflect-padding backward adds with atomics), the
+# window moments' cancellation amplifies a last-bit difference up to ~1e2:
+# max abs difference within 2e-5 of the largest gradient.
+K1_BWD_RTOL = 2e-5
+# fp32 operations of K1's backward per channel-pixel: the window sums and
+# SSIM as in the forward (9 x 8 + 33), the chain rule to the three window
+# coefficients (30), the 3x3 gather with multiplicities (9 x 6) and the
+# final combination with the L1 term (6); per pixel the scaling of g (5).
+K1_BWD_OPS_PER_CHANNEL = 9 * 8 + 33 + 30 + 9 * 6 + 6
+K1_BWD_OPS_PER_PIXEL = 5
+# The train step on the card against the CPU at 2x64x96 fp32: losses rtol
+# 1e-4 and the gradient norm 1e-3 (fp32 sums in other orders). The
+# gradient within 1e-2 of its 2-norm, and each parameter's within 1e-1 of
+# its own: fp32 rounding decides near-ties (auto-mask minima, ReLU kinks of
+# nearly constant BatchNorm channels) one pixel or channel at a time, which
+# moves single leaves by a few percent (tests/test_torch_train_step.py),
+# while a wrong gradient on a leaf is off by 1 or more. BatchNorm statistics
+# rtol 1e-4, atol 1e-5. The updated weights only show that the update was
+# applied: a first Adam step moves each by at most lr, so atol 2.5e-4.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL = 1e-4, 1e-3
+TRAIN_GRAD_RTOL, TRAIN_GRAD_LEAF_RTOL = 1e-2, 1e-1
+TRAIN_WEIGHT_ATOL, TRAIN_STATS_RTOL, TRAIN_STATS_ATOL = 2.5e-4, 1e-4, 1e-5
 
 
 def check(ok: bool, what: str) -> None:
@@ -70,18 +101,24 @@ def check(ok: bool, what: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Median of ``reps`` warm runs of ``fn``, each timed by CUDA events."""
+    """Time per call of ``fn`` on the card: ``reps`` calls back to back
+    between one pair of CUDA events, divided by ``reps``; the median of five
+    such runs after three warm calls. The host queues the calls ahead of the
+    card, so its dispatch is hidden wherever a call keeps the card busy for
+    longer than the host takes to launch it."""
     for _ in range(3):
         fn()
+    torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(5):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -107,12 +144,11 @@ def phase_card():
     return rates[0]
 
 
-def phase_k1(rates):
-    from deep_visual_slam_torch.ops import photometric_cuda as k1
-
-    print("phase 2: K1 reprojection_loss against its plain version")
+def k1_inputs():
+    """The three K1 checks' inputs: the step's shape, a ragged shape that
+    exercises the reflected borders, and the all-zero image."""
     g = torch.Generator(device="cuda").manual_seed(0)
-    cases = {
+    return {
         "random [16,480,640,3]": (
             torch.rand((16, 480, 640, 3), device="cuda", generator=g),
             torch.rand((16, 480, 640, 3), device="cuda", generator=g),
@@ -126,6 +162,13 @@ def phase_k1(rates):
             torch.zeros((2, 48, 64, 3), device="cuda"),
         ),
     }
+
+
+def phase_k1(rates):
+    from deep_visual_slam_torch.ops import photometric_cuda as k1
+
+    print("phase 2: K1 reprojection_loss against its plain version")
+    cases = k1_inputs()
     max_err = 0.0
     for label, (pred, target) in cases.items():
         out = k1.reprojection_loss(pred, target, 0.85)
@@ -146,9 +189,9 @@ def phase_k1(rates):
     bytes_ms, ops_ms = nbytes / rates[0] * 1e3, ops / rates[1] * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     print(
-        f"  [16,480,640,3]: kernel {ms:.4f} ms (median of 50), plain "
-        f"{plain_ms:.4f} ms (median of 10); bound {bound_ms:.4f} ms "
-        f"({nbytes / 1e6:.1f} MB at {rates[0] / 1e12:.2f} TB/s; "
+        f"  [16,480,640,3]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        "(per call, 50 and 10 calls back to back, median of 5); bound "
+        f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at {rates[0] / 1e12:.2f} TB/s; "
         f"{ops / 1e9:.2f} GFLOP fp32 takes {ops_ms:.4f} ms); no single "
         "PyTorch call computes this function, so no library yardstick"
     )
@@ -167,11 +210,71 @@ def phase_k1(rates):
     }
 
 
+def phase_k1_backward(rates):
+    from deep_visual_slam_torch.ops import photometric_cuda as k1
+
+    print("phase 3: K1 backward against the plain version's autograd")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    max_err = 0.0
+    for label, (pred, target) in k1_inputs().items():
+        g = 0.5 + torch.rand(pred.shape[:3] + (1,), device="cuda", generator=gen)
+        grads = []
+        for fn in (k1.reprojection_loss, k1.reprojection_loss_plain):
+            p, t = pred.clone().requires_grad_(), target.clone().requires_grad_()
+            fn(p, t, 0.85).backward(g)
+            torch.cuda.synchronize()
+            grads.append((p.grad, t.grad))
+        for name, got, want in zip(("dpred", "dtarget"), *grads):
+            check(got.shape == want.shape == pred.shape, f"K1 bwd {name} shape {label}")
+            check(bool(torch.isfinite(got).all()), f"K1 bwd {name} finite {label}")
+            err = (got - want).abs().max().item()
+            tol = K1_BWD_RTOL * want.abs().max().item()
+            print(f"  {label} {name}: max |kernel - plain| = {err:.3e} "
+                  f"(tolerance {tol:.3e} = {K1_BWD_RTOL:.0e} x max |plain|)")
+            check(err <= tol, f"K1 bwd {label} {name} within {tol:.3e}")
+            max_err = max(max_err, err)
+
+    pred, target = k1_inputs()["random [16,480,640,3]"]
+    B, H, W, C = pred.shape
+    g = 0.5 + torch.rand((B, H, W, 1), device="cuda", generator=gen)
+    ms = cuda_ms(lambda: k1.reprojection_loss_backward(pred, target, g, 0.85), 50)
+    p = pred.clone().requires_grad_()
+    out = k1.reprojection_loss_plain(p, target, 0.85)
+    plain_ms = cuda_ms(
+        lambda: torch.autograd.grad(out, p, g, retain_graph=True), 10
+    )
+    nbytes = 3 * pred.numel() * 4 + B * H * W * 4  # pred, target, g in; dpred out
+    ops = B * H * W * (K1_BWD_OPS_PER_CHANNEL * C + K1_BWD_OPS_PER_PIXEL)
+    bytes_ms, ops_ms = nbytes / rates[0] * 1e3, ops / rates[1] * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    print(
+        f"  [16,480,640,3] dL/dpred: kernel {ms:.4f} ms, plain autograd "
+        f"backward {plain_ms:.4f} ms (per call, 50 and 10 calls back to back, "
+        f"median of 5); bound "
+        f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at {rates[0] / 1e12:.2f} "
+        f"TB/s; {ops / 1e9:.2f} GFLOP fp32 takes {ops_ms:.4f} ms); no single "
+        "PyTorch call computes this gradient, so no library yardstick"
+    )
+    return {
+        "name": "reprojection_loss_backward",
+        "route": "cuda",
+        "source": "deep_visual_slam_torch/csrc/reprojection.cu",
+        "replaces": "deep_visual_slam_tpu/ops/pallas/photometric_pallas.py:136",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }
+
+
 def phase_serving(k1):
     from deep_visual_slam_torch.data import smooth_texture
     from deep_visual_slam_torch.slam import Networks
 
-    print("phase 3: serving, Networks at 480x640, B=1, bf16, 20 frames")
+    print("phase 4: serving, Networks at 480x640, B=1, bf16, 20 frames")
     H, W = 480, 640
     frames = smooth_texture(np.random.default_rng(1), 20, H, W)
     frames = (frames * 255).round().astype(np.uint8)
@@ -204,24 +307,21 @@ def phase_serving(k1):
     )
 
 
-def phase_eval(k1, k1_ms):
+def phase_eval(k1, k1_ms, config):
     from deep_visual_slam_torch.data import synthetic_vo_batch
-    from deep_visual_slam_torch.models import DepthNet, PoseNet
-    from deep_visual_slam_torch.training import VOLossConfig, make_vo_eval_step
-    from deep_visual_slam_torch.utils.config import load_config
+    from deep_visual_slam_torch.training import (
+        VOLossConfig,
+        init_vo_models,
+        make_vo_eval_step,
+    )
 
-    print("phase 4: evaluation step")
-    config = load_config(ROOT / "configs" / "vo.yaml")
+    print("phase 5: evaluation step")
     train = config["Train"]
     cfg = VOLossConfig.from_config(config)
     seed = train["seed"]
 
     def models():
-        g = torch.Generator().manual_seed(seed)
-        return (
-            DepthNet(predict_uncertainty=cfg.uncertainty, generator=g),
-            PoseNet(generator=g),
-        )
+        return init_vo_models(seed, predict_uncertainty=cfg.uncertainty)
 
     # Small input, fp32: the card (kernel K1, cuDNN, CUDA grid_sample)
     # against the same step on the CPU (plain versions) with the same
@@ -251,7 +351,7 @@ def phase_eval(k1, k1_ms):
     batch, _ = synthetic_vo_batch(seed, B, H, W)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n_steps = 4
-    k1.launches = 0
+    k1.launches = k1.backward_launches = 0
     times = []
     for i in range(n_steps):
         torch.cuda.synchronize()
@@ -263,6 +363,7 @@ def phase_eval(k1, k1_ms):
         check(keep["disp_0"].shape == (B, H, W, 1), "disp_0 shape")
         check(k1.launches == 10 * (i + 1), f"K1 launches {k1.launches} after {i + 1} steps")
     launches = k1.launches
+    check(k1.backward_launches == 0, "no K1 backward in the eval step")
     step_ms = statistics.median(times[1:])
     print(
         f"  B={B} {H}x{W} {train['compute_dtype']}: {step_ms:.2f} ms/step "
@@ -272,6 +373,170 @@ def phase_eval(k1, k1_ms):
         f"{10 * k1_ms / step_ms:.1%}"
     )
     return launches
+
+
+def _weights(model):
+    """Every parameter and BatchNorm statistic of ``model``, on the CPU."""
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def phase_train(k1, k1_ms, k1_bwd_ms, config):
+    from deep_visual_slam_torch.data import synthetic_stereo_batch, synthetic_vo_batch
+    from deep_visual_slam_torch.training import (
+        TrainState,
+        VOLossConfig,
+        init_vo_models,
+        make_stereo_train_step,
+        make_vo_train_step,
+    )
+
+    print("phase 6: train step")
+    train = config["Train"]
+    cfg = VOLossConfig.from_config(config)
+    seed = train["seed"]
+
+    def start():
+        # The JAX trainer's optimizer: Adam, polynomial decay to 0.
+        depth, pose = init_vo_models(seed, predict_uncertainty=cfg.uncertainty)
+        return TrainState.create(
+            depth, pose, train["init_lr"], total_steps=100,
+            beta1=train.get("beta1", 0.9),
+        )
+
+    # Small input, fp32: one step on the card (K1 forward and backward,
+    # cuDNN, CUDA grid_sample, torch.optim) against the same step on the
+    # CPU (plain versions) with the same weights, batch and noise.
+    batch, _ = synthetic_vo_batch(seed, 2, 64, 96, device="cpu")
+    noise = [torch.randn(2, 64, 96, 2, generator=torch.Generator().manual_seed(s))
+             for s in range(cfg.num_scales)]
+    results = []
+    for device in ("cpu", "cuda"):
+        state = start()
+        step = make_vo_train_step(
+            state.depth_model, state.pose_model, cfg, torch.float32, device=device
+        )
+        losses = step(state, batch, noise=noise)
+        weights, grads = {}, {}
+        for name, model in (("depth", state.depth_model), ("pose", state.pose_model)):
+            weights.update({f"{name}.{k}": v for k, v in _weights(model).items()})
+            grads.update({f"{name}.{k}": p.grad.detach().cpu()
+                          for k, p in model.named_parameters()})
+        results.append(({k: v.item() for k, v in losses.items()}, weights, grads))
+    (lc, wc, gc), (lg, wg, gg) = results
+    worst_loss = max(abs(lg[k] - lc[k]) / abs(lc[k]) for k in lc if k != "grad_norm")
+    rel_norm = abs(lg["grad_norm"] - lc["grad_norm"]) / lc["grad_norm"]
+    sq_err = sq_want = worst_leaf = 0.0
+    for k, want in gc.items():
+        err, scale = (gg[k] - want).norm().item(), want.norm().item()
+        worst_leaf = max(worst_leaf, err / scale)
+        sq_err, sq_want = sq_err + err**2, sq_want + scale**2
+    rel_grad = (sq_err / sq_want) ** 0.5
+    worst_w = worst_s = 0.0
+    for k, v in wc.items():
+        err = (wg[k] - v).abs()
+        if k.endswith(("running_mean", "running_var")):
+            worst_s = max(worst_s, (err / (TRAIN_STATS_ATOL + TRAIN_STATS_RTOL * v.abs()))
+                          .max().item())
+        else:
+            worst_w = max(worst_w, err.max().item())
+    print(
+        f"  2x64x96 fp32, card vs CPU: losses within rtol {worst_loss:.2e} "
+        f"(<= {TRAIN_LOSS_RTOL:.0e}), grad_norm {lg['grad_norm']:.6f} vs "
+        f"{lc['grad_norm']:.6f}, rtol {rel_norm:.2e} (<= {TRAIN_GRAD_NORM_RTOL:.0e}); "
+        f"gradient within {rel_grad:.2e} of its 2-norm (<= {TRAIN_GRAD_RTOL:.0e}), "
+        f"worst of {len(gc)} parameters within {worst_leaf:.2e} of its own "
+        f"(<= {TRAIN_GRAD_LEAF_RTOL:.0e}); updated weights within atol "
+        f"{worst_w:.2e} (<= {TRAIN_WEIGHT_ATOL:.1e}); BatchNorm statistics at "
+        f"{worst_s:.2f} of their tolerance"
+    )
+    check(worst_loss <= TRAIN_LOSS_RTOL, "small train losses")
+    check(rel_norm <= TRAIN_GRAD_NORM_RTOL, "small train grad_norm")
+    check(rel_grad <= TRAIN_GRAD_RTOL, "small train gradient")
+    check(worst_leaf <= TRAIN_GRAD_LEAF_RTOL, "small train gradient of each parameter")
+    check(worst_w <= TRAIN_WEIGHT_ATOL, "small train updated weights")
+    check(worst_s <= 1.0, "small train BatchNorm statistics")
+
+    B, H, W = train["batch_size"], train["img_h"], train["img_w"]
+    dtype = getattr(torch, train["compute_dtype"])
+    state = start()
+    step = make_vo_train_step(
+        state.depth_model, state.pose_model, cfg, dtype,
+        remat=train.get("remat", False),
+        device_augment=train.get("device_augment", False),
+    )
+    batch, _ = synthetic_vo_batch(seed, B, H, W)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    before = {"depth": _weights(state.depth_model), "pose": _weights(state.pose_model)}
+    n_steps = 4
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k1.backward_launches = 0
+    times, loss_curve = [], []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        start_t = time.perf_counter()
+        losses = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start_t) * 1e3)
+        check(all(bool(torch.isfinite(v)) for v in losses.values()), "train losses finite")
+        check(k1.launches == 10 * (i + 1) and k1.backward_launches == 8 * (i + 1),
+              f"K1 launches {k1.launches} forward, {k1.backward_launches} "
+              f"backward after {i + 1} train steps")
+        loss_curve.append(losses["loss"].item())
+    train_launches = (k1.launches, k1.backward_launches)
+    for name, model in (("depth", state.depth_model), ("pose", state.pose_model)):
+        after = _weights(model)
+        still = [k for k, v in before[name].items()
+                 if not k.endswith(("running_mean", "running_var"))
+                 and torch.equal(after[k], v)]
+        check(not still, f"{name} parameters that did not move: {still[:3]}")
+    step_ms = statistics.median(times[1:])
+    print(
+        f"  B={B} {H}x{W} {train['compute_dtype']}: {step_ms:.2f} ms/step "
+        f"(median of {n_steps - 1} after a warm step, host clock; first step "
+        f"{times[0]:.1f} ms); loss {' -> '.join(f'{l:.5f}' for l in loss_curve)}; "
+        f"grad_norm {losses['grad_norm'].item():.4f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K1 launches "
+        f"{train_launches[0]} forward, {train_launches[1]} backward in {n_steps} "
+        f"steps = 10 and 8 per step; K1 share ~ (10 x {k1_ms:.4f} + 8 x "
+        f"{k1_bwd_ms:.4f}) ms / step = {(10 * k1_ms + 8 * k1_bwd_ms) / step_ms:.1%}; "
+        "all parameters of both networks moved"
+    )
+
+    # One stereo step on the same state: PoseNet must not move.
+    stereo = make_stereo_train_step(state.depth_model, cfg, dtype)
+    sbatch, _ = synthetic_stereo_batch(seed, B, H, W)
+    pose_params = list(state.pose_model.parameters())
+    pose_before = [p.detach().clone() for p in pose_params]
+    moments_before = [{k: v.clone() for k, v in state.optimizer.state[p].items()}
+                      for p in pose_params]
+    depth_before = _weights(state.depth_model)
+    k1.launches = k1.backward_launches = 0
+    torch.cuda.synchronize()
+    start_t = time.perf_counter()
+    losses = stereo(state, sbatch, gen)
+    torch.cuda.synchronize()
+    stereo_ms = (time.perf_counter() - start_t) * 1e3
+    stereo_launches = (k1.launches, k1.backward_launches)
+    check(stereo_launches == (5, 4), f"K1 launches {stereo_launches} in a stereo step")
+    check(all(bool(torch.isfinite(v)) for v in losses.values()), "stereo losses finite")
+    for p, old, moments in zip(pose_params, pose_before, moments_before):
+        check(torch.equal(p, old), "PoseNet parameter moved in a stereo step")
+        for k, v in state.optimizer.state[p].items():
+            if k == "step":
+                check(v.item() == moments[k].item() + 1, "Adam count advanced")
+            else:
+                check(torch.equal(v, moments[k]), f"PoseNet Adam {k} moved")
+    depth_after = _weights(state.depth_model)
+    check(any(not torch.equal(depth_after[k], v) for k, v in depth_before.items()),
+          "DepthNet moved in a stereo step")
+    print(
+        f"  stereo B={B} {H}x{W} {train['compute_dtype']}: {stereo_ms:.2f} ms "
+        f"(one step, host clock); loss {losses['loss'].item():.5f}; K1 launches "
+        f"{stereo_launches[0]} forward, {stereo_launches[1]} backward; PoseNet "
+        "parameters and Adam moments unchanged, its Adam count advanced"
+    )
+    return train_launches, stereo_launches
 
 
 def main() -> int:
@@ -285,15 +550,29 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from deep_visual_slam_torch.ops.photometric_cuda import reprojection_loss
+    from deep_visual_slam_torch.utils.config import load_config
 
+    config = load_config(ROOT / "configs" / "vo.yaml")
     start = time.perf_counter()
     rates = phase_card()
     k1_row = phase_k1(rates)
+    bwd_row = phase_k1_backward(rates)
     phase_serving(reprojection_loss)
-    k1_row["launches"] = phase_eval(reprojection_loss, k1_row["ms"])
-    check(k1_row["launches"] > 0, "K1 launched on the main path")
+    eval_launches = phase_eval(reprojection_loss, k1_row["ms"], config)
+    (train_fwd, train_bwd), (stereo_fwd, stereo_bwd) = phase_train(
+        reprojection_loss, k1_row["ms"], bwd_row["ms"], config
+    )
+    # Each main path ran with the counts set to 0 just before it.
+    k1_row["launches"] = eval_launches + train_fwd + stereo_fwd
+    k1_row["launches_by_path"] = {
+        "eval": eval_launches, "train": train_fwd, "stereo": stereo_fwd,
+    }
+    bwd_row["launches"] = train_bwd + stereo_bwd
+    bwd_row["launches_by_path"] = {"eval": 0, "train": train_bwd, "stereo": stereo_bwd}
+    for row in (k1_row, bwd_row):
+        check(row["launches"] > 0, f"{row['name']} launched on the main path")
     print(f"total {time.perf_counter() - start:.1f} s")
-    print(json.dumps({"kernels": [k1_row]}))
+    print(json.dumps({"kernels": [k1_row, bwd_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

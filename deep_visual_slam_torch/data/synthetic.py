@@ -1,5 +1,5 @@
-"""Synthetic VO snippets with known depth, pose and intrinsics (port of
-``data/synthetic.py``).
+"""Synthetic VO snippets and stereo pairs with known depth, pose and
+intrinsics (port of ``data/synthetic.py``).
 
 A textured slanted plane is rendered into photometrically consistent
 (left, target, right) frames with the port's own warp ops, so the VO loss
@@ -118,3 +118,38 @@ def synthetic_vo_batch(
     }
     truth = {"T_left": T_left, "T_right": T_right, "depth": depth}
     return batch, truth
+
+
+def synthetic_stereo_batch(
+    seed: int,
+    batch_size: int,
+    height: int,
+    width: int,
+    baseline: float = 0.1,
+    device=None,
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Rectified stereo pairs with an exactly known baseline pose.
+
+    The batch of the JAX package's ``SyntheticStereoDataset`` items 0 ..
+    batch_size-1 (sample i drawn from ``default_rng((seed, i))``). Returns
+    ``(batch, truth)``: ``batch`` feeds the stereo loss (keys source_image /
+    target_image / intrinsic / pose, ``pose`` mapping target-frame points
+    into the source camera, which sits at +baseline along x), ``truth``
+    holds the plane depth.
+    """
+    device = resolve_device(device)
+    textures, depths = [], []
+    for i in range(batch_size):
+        rng = np.random.default_rng((seed, i))
+        textures.append(smooth_texture(rng, 1, height, width))
+        depths.append(plane_depth(1, height, width, z0=float(rng.uniform(1.5, 3.0))))
+    target = torch.from_numpy(np.concatenate(textures)).to(device)
+    depth = torch.from_numpy(np.concatenate(depths)).to(device)
+    K = torch.from_numpy(default_intrinsics(height, width)).to(device)
+    K = K.expand(batch_size, 4, 4).contiguous()
+    T = torch.eye(4, device=device).repeat(batch_size, 1, 1)
+    T[:, 0, 3] = -baseline
+    grid = project(backproject(depth, torch.linalg.inv(K)), K, invert_se3(T))
+    source = grid_sample(target, grid, align_corners=True, padding_mode="border")
+    batch = {"source_image": source, "target_image": target, "intrinsic": K, "pose": T}
+    return batch, {"depth": depth}

@@ -9,12 +9,65 @@ the same function.
 
 from __future__ import annotations
 
-from typing import List
+import contextlib
+from typing import Iterator, List
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 STAGE_SIZES = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's running-statistics rule in train mode.
+
+    flax's ``BatchNorm`` (momentum 0.9, which is torch's 0.1) moves
+    ``running_var`` toward the *biased* batch variance; torch's moves it
+    toward the unbiased one, n/(n-1) times larger. Train mode here
+    normalises as torch does and updates ``running_var`` as flax does.
+    While ``update_stats`` is False (the recomputation of a checkpointed
+    forward, see :func:`frozen_running_stats`) it computes the same output
+    and leaves the running statistics alone. Eval mode and the
+    ``state_dict`` names are ``nn.BatchNorm2d``'s.
+    """
+
+    update_stats = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        # Given zeroed buffers, torch's batch_norm leaves momentum * mean and
+        # momentum * var * n/(n-1) in them; (n-1)/n of the latter is
+        # momentum times the biased variance.
+        n = x.numel() // x.shape[1]
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        out = F.batch_norm(
+            x, mean, var, self.weight, self.bias, True, self.momentum, self.eps
+        )
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - self.momentum).add_(mean)
+                self.running_var.mul_(1.0 - self.momentum).add_(
+                    var, alpha=(n - 1) / n
+                )
+                self.num_batches_tracked.add_(1)
+        return out
+
+
+@contextlib.contextmanager
+def frozen_running_stats(model: nn.Module) -> Iterator[None]:
+    """Within the block, ``model``'s :class:`BatchNorm2d` layers leave their
+    running statistics alone in train mode."""
+    layers = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in layers:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.update_stats = True
 
 
 def _conv(inp: int, out: int, kernel: int, stride: int) -> nn.Conv2d:
@@ -27,13 +80,13 @@ class BasicBlock(nn.Module):
     def __init__(self, inp: int, features: int, stride: int = 1):
         super().__init__()
         self.conv1 = _conv(inp, features, 3, stride)
-        self.bn1 = nn.BatchNorm2d(features)
+        self.bn1 = BatchNorm2d(features)
         self.conv2 = _conv(features, features, 3, 1)
-        self.bn2 = nn.BatchNorm2d(features)
+        self.bn2 = BatchNorm2d(features)
         self.downsample = None
         if stride != 1 or inp != features:
             self.downsample = nn.Sequential(
-                _conv(inp, features, 1, stride), nn.BatchNorm2d(features)
+                _conv(inp, features, 1, stride), BatchNorm2d(features)
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -49,7 +102,7 @@ class _ResNet(nn.Module):
     def __init__(self, num_layers: int, in_channels: int):
         super().__init__()
         self.conv1 = _conv(in_channels, 64, 7, 2)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         inp = 64
         for stage, (width, n_blocks) in enumerate(

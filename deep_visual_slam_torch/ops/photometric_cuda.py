@@ -1,14 +1,14 @@
 """Kernel K1: the fused SSIM + L1 reprojection-loss map, and its plain version.
 
-``reprojection_loss`` launches the hand-written CUDA kernel
-(``csrc/reprojection.cu``, which replaces the Pallas kernel
-``deep_visual_slam_tpu/ops/pallas/photometric_pallas.py:_kernel5``) on CUDA
-tensors, and takes the plain PyTorch version, ``reprojection_loss_plain``,
-only for CPU tensors. Nothing falls back: a CUDA input the kernel does not
-take, a failed build or a failed launch raises.
-
-Forward only. Inputs that require grad raise on CUDA; the backward kernel
-belongs to the training slice.
+``reprojection_loss`` runs the hand-written CUDA kernels
+(``csrc/reprojection.cu``, which replace the Pallas kernel
+``deep_visual_slam_tpu/ops/pallas/photometric_pallas.py:_kernel5`` and its
+``custom_vjp`` backward ``_bwd``) on CUDA tensors through a
+``torch.autograd.Function``: the forward kernel, and the backward kernel for
+the gradient of each input that requires one. The plain PyTorch version,
+``reprojection_loss_plain``, under ordinary autograd, serves CPU tensors
+only. Nothing falls back: a CUDA input the kernel does not take, a failed
+build or a failed launch raises.
 """
 
 from __future__ import annotations
@@ -73,15 +73,30 @@ def reprojection_loss_plain(
     return ssim_ratio * ssim_l + (1.0 - ssim_ratio) * l1
 
 
+_ARGTYPES = {  # the C entry points of csrc/reprojection.cu
+    "reprojection_loss_forward": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+    "reprojection_loss_backward": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+}
+
+
 @functools.cache
-def _forward():
-    """The kernel's C entry point, built and loaded at first use."""
-    fn = cuda_build.load("reprojection.cu").reprojection_loss_forward
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-    ]
+def _entry(name: str):
+    """A C entry point of the kernels, built and loaded at first use."""
+    fn = getattr(cuda_build.load("reprojection.cu"), name)
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Calls entry point ``name`` on the current stream of ``device``."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _entry(name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def _check(pred: torch.Tensor, target: torch.Tensor) -> None:
@@ -92,11 +107,6 @@ def _check(pred: torch.Tensor, target: torch.Tensor) -> None:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous (NHWC)")
-        if t.requires_grad:
-            raise NotImplementedError(
-                "reprojection_loss has no backward kernel yet; "
-                f"{name} requires grad"
-            )
     if pred.device != target.device:
         raise ValueError(f"inputs on {pred.device} and {target.device}")
     if pred.shape != target.shape or pred.dim() != 4:
@@ -111,30 +121,95 @@ def _check(pred: torch.Tensor, target: torch.Tensor) -> None:
         raise ValueError(f"unsupported batch {B} or channel count {C}")
 
 
+def _contiguous_grad(g: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    """dL/dout as the backward kernel takes it: fp32 [B, H, W, 1] on pred's
+    device, contiguous. The maps are concatenated on the last axis in the VO
+    loss, so their gradients arrive as strided slices and are copied here."""
+    if g.device != pred.device:
+        raise ValueError(f"gradient on {g.device}, inputs on {pred.device}")
+    if g.dtype != torch.float32:
+        raise TypeError(f"gradient must be float32, got {g.dtype}")
+    if g.shape != pred.shape[:3] + (1,):
+        raise ValueError(
+            f"gradient shape {tuple(g.shape)} is not {tuple(pred.shape[:3]) + (1,)}"
+        )
+    return g.contiguous()
+
+
+def _forward_kernel(
+    pred: torch.Tensor, target: torch.Tensor, ssim_ratio: float
+) -> torch.Tensor:
+    B, H, W, C = pred.shape
+    out = torch.empty((B, H, W, 1), device=pred.device, dtype=torch.float32)
+    _launch(
+        "reprojection_loss_forward", pred.device,
+        pred.data_ptr(), target.data_ptr(), out.data_ptr(), B, H, W, C,
+        ssim_ratio, 1.0 - ssim_ratio,
+    )
+    reprojection_loss.launches += 1
+    return out
+
+
+def reprojection_loss_backward(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    g: torch.Tensor,
+    ssim_ratio: float = 0.85,
+) -> torch.Tensor:
+    """dL/dpred of :func:`reprojection_loss` by the backward kernel, given
+    ``g`` = dL/dout [B, H, W, 1] (any strides); called with pred and target
+    swapped it gives dL/dtarget. CUDA tensors only; the launch is counted
+    in ``reprojection_loss.backward_launches``."""
+    _check(pred, target)
+    g = _contiguous_grad(g, pred)
+    B, H, W, C = pred.shape
+    coef = torch.empty((3, C, B, H, W), device=pred.device, dtype=torch.float32)
+    grad = torch.empty_like(pred)
+    _launch(
+        "reprojection_loss_backward", pred.device,
+        pred.data_ptr(), target.data_ptr(), g.data_ptr(), coef.data_ptr(),
+        grad.data_ptr(), B, H, W, C, ssim_ratio, 1.0 - ssim_ratio,
+    )
+    reprojection_loss.backward_launches += 1
+    return grad
+
+
+class _ReprojectionLoss(torch.autograd.Function):
+    """K1's forward kernel, with its backward kernel as the gradient."""
+
+    @staticmethod
+    def forward(ctx, pred, target, ssim_ratio):
+        ctx.save_for_backward(pred, target)
+        ctx.ssim_ratio = ssim_ratio
+        return _forward_kernel(pred, target, ssim_ratio)
+
+    @staticmethod
+    def backward(ctx, g):
+        pred, target = ctx.saved_tensors
+        grad_pred = grad_target = None
+        if ctx.needs_input_grad[0]:
+            grad_pred = reprojection_loss_backward(pred, target, g, ctx.ssim_ratio)
+        if ctx.needs_input_grad[1]:
+            grad_target = reprojection_loss_backward(target, pred, g, ctx.ssim_ratio)
+        return grad_pred, grad_target, None
+
+
 def reprojection_loss(
     pred: torch.Tensor, target: torch.Tensor, ssim_ratio: float = 0.85
 ) -> torch.Tensor:
     """Reprojection-loss map [B, H, W, C] x 2 -> [B, H, W, 1] fp32.
 
-    CPU tensors take :func:`reprojection_loss_plain`; CUDA tensors launch
-    the kernel on the current stream and count the launch in
-    ``reprojection_loss.launches``.
+    CPU tensors take :func:`reprojection_loss_plain` under ordinary
+    autograd. CUDA tensors go through the kernels on the current stream:
+    the forward launch is counted in ``reprojection_loss.launches``, each
+    backward launch (one per input that requires grad) in
+    ``reprojection_loss.backward_launches``.
     """
     if pred.device.type == "cpu" and target.device.type == "cpu":
         return reprojection_loss_plain(pred, target, ssim_ratio)
     _check(pred, target)
-    B, H, W, C = pred.shape
-    out = torch.empty((B, H, W, 1), device=pred.device, dtype=torch.float32)
-    with torch.cuda.device(pred.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _forward()(
-            pred.data_ptr(), target.data_ptr(), out.data_ptr(), B, H, W, C,
-            ssim_ratio, 1.0 - ssim_ratio, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"reprojection_loss kernel launch failed: CUDA error {err}")
-    reprojection_loss.launches += 1
-    return out
+    return _ReprojectionLoss.apply(pred, target, ssim_ratio)
 
 
 reprojection_loss.launches = 0
+reprojection_loss.backward_launches = 0

@@ -1,4 +1,4 @@
-"""VO loss and the evaluation step."""
+"""VO loss, the train state, and the train, stereo and eval steps."""
 
 from deep_visual_slam_torch.training.vo_learner import (
     VOLossConfig,
@@ -6,8 +6,19 @@ from deep_visual_slam_torch.training.vo_learner import (
     generate_images_pred,
     predict_poses,
     process_batch,
+    process_stereo_batch,
 )
-from deep_visual_slam_torch.training.steps import make_vo_eval_step
+from deep_visual_slam_torch.training.state import (
+    TrainState,
+    init_vo_models,
+    make_optimizer,
+    polynomial_lr,
+)
+from deep_visual_slam_torch.training.steps import (
+    make_stereo_train_step,
+    make_vo_eval_step,
+    make_vo_train_step,
+)
 
 __all__ = [
     "VOLossConfig",
@@ -15,5 +26,12 @@ __all__ = [
     "generate_images_pred",
     "predict_poses",
     "process_batch",
+    "process_stereo_batch",
+    "TrainState",
+    "init_vo_models",
+    "make_optimizer",
+    "polynomial_lr",
+    "make_stereo_train_step",
     "make_vo_eval_step",
+    "make_vo_train_step",
 ]

@@ -3,8 +3,8 @@
 
 Plain functions over NHWC batches. ``depth_net(image[B, H, W, 3])`` returns
 ``{("disp", s): [B, H/2^s, W/2^s, 1]}`` and ``pose_net(pair[B, H, W, 6])``
-returns ``(axisangle, translation)`` of shape [B, 1, 1, 3]; the eval step
-(``training/steps.py``) adapts the NCHW modules to these callables.
+returns ``(axisangle, translation)`` of shape [B, 1, 1, 3]; the steps
+(``training/steps.py``) adapt the NCHW modules to these callables.
 """
 
 from __future__ import annotations
@@ -114,6 +114,19 @@ def generate_images_pred(
             )
 
 
+def _tie_break_draw(
+    identity: torch.Tensor,
+    scale: int,
+    generator: torch.Generator | None,
+    noise: Sequence[torch.Tensor] | None,
+) -> torch.Tensor:
+    """The auto-mask tie-break's standard normal of ``identity``'s shape for
+    ``scale``: drawn from ``generator`` unless ``noise`` hands it in."""
+    if noise is None:
+        return torch.randn(identity.shape, generator=generator, device=identity.device)
+    return noise[scale].to(identity.device)
+
+
 def compute_losses(
     batch: Dict[str, torch.Tensor],
     outputs: Dict[Any, torch.Tensor],
@@ -154,12 +167,7 @@ def compute_losses(
         )  # [B, H, W, 2]
 
         if cfg.auto_mask:
-            if noise is None:
-                draw = torch.randn(
-                    identity.shape, generator=generator, device=identity.device
-                )
-            else:
-                draw = noise[scale].to(identity.device)
+            draw = _tie_break_draw(identity, scale, generator, noise)
             combined = torch.cat([identity + draw * 1e-5, reproj], dim=-1)
             to_optimise, idxs = torch.min(combined, dim=-1, keepdim=True)
             outputs[f"identity_selection/{scale}"] = (
@@ -183,6 +191,62 @@ def compute_losses(
 
     losses["loss"] = total_loss / cfg.num_scales
     return losses
+
+
+def process_stereo_batch(
+    depth_net: Callable,
+    batch: Dict[str, torch.Tensor],
+    cfg: VOLossConfig,
+    generator: torch.Generator | None = None,
+    noise: Sequence[torch.Tensor] | None = None,
+) -> Tuple[Dict[Any, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Depth-only photometric loss of a stereo pair at its known baseline.
+
+    Batch keys: ``source_image``, ``target_image``, ``intrinsic`` [B, 4, 4]
+    and ``pose`` [B, 4, 4], the transform of target-frame points into the
+    source camera. No PoseNet runs; ``cfg.uncertainty`` is not applied (as
+    in the JAX package). The auto-mask noise is [B, H, W, 1] per scale,
+    drawn or handed in as in :func:`compute_losses`.
+    """
+    target = batch["target_image"]
+    source = batch["source_image"]
+    _, H, W, _ = target.shape
+    K = batch["intrinsic"]
+    inv_K = torch.linalg.inv_ex(K).inverse
+    T = batch["pose"]
+
+    outputs = dict(depth_net(target))
+    losses: Dict[str, torch.Tensor] = {}
+    total_loss = 0.0
+
+    identity = reprojection_loss(source, target, cfg.ssim_ratio)  # [B, H, W, 1]
+
+    for scale in range(cfg.num_scales):
+        disp_up = resize_bilinear(outputs[("disp", scale)], H, W)
+        outputs[("disp_up", scale)] = disp_up
+        _, depth = disp_to_depth(disp_up, cfg.min_depth, cfg.max_depth)
+        outputs[("depth", scale)] = depth
+
+        grid = project(backproject(depth, inv_K), K, T)
+        color = grid_sample(source, grid, align_corners=True, padding_mode="border")
+        outputs[("color", "s", scale)] = color
+        reproj = reprojection_loss(color, target, cfg.ssim_ratio)
+
+        if cfg.auto_mask:
+            draw = _tie_break_draw(identity, scale, generator, noise)
+            combined = torch.cat([identity + draw * 1e-5, reproj], dim=-1)
+            to_optimise = torch.min(combined, dim=-1, keepdim=True).values
+        else:
+            to_optimise = reproj
+
+        loss = torch.mean(to_optimise)
+        smooth = normalized_smooth_loss(disp_up, target)
+        loss = loss + cfg.smoothness_ratio * smooth / (2**scale)
+        total_loss = total_loss + loss
+        losses[f"stereo_loss/{scale}"] = loss
+
+    losses["loss"] = total_loss / cfg.num_scales
+    return outputs, losses
 
 
 def process_batch(

@@ -8,7 +8,10 @@ nothing of JAX, so it also runs where JAX is not installed; the repo's
     python3 -m pytest tests/test_torch_kernels.py --noconftest -o addopts="" -m cuda
 
 K1 and its plain version are both fp32 with the same tap order, so they
-agree to a few ulp: atol 1e-5.
+agree to a few ulp: atol 1e-5. K1's backward kernel and the plain version's
+autograd take their sums in other orders (and the plain one's
+reflect-padding backward adds with atomics): atol 2e-5 x the largest
+gradient.
 """
 
 import pytest
@@ -53,5 +56,65 @@ def test_reprojection_kernel_rejects_what_it_cannot_take(cuda_device):
         photometric_cuda.reprojection_loss(x[:, :1], x[:, :1])
     with pytest.raises(ValueError):  # one input on the CPU
         photometric_cuda.reprojection_loss(x, x.cpu())
-    with pytest.raises(NotImplementedError):  # no backward kernel yet
-        photometric_cuda.reprojection_loss(x.clone().requires_grad_(), x)
+
+
+@pytest.mark.cuda
+def test_reprojection_gradient_comes_from_the_kernel(cuda_device):
+    x = torch.rand(1, 8, 8, 3, device=cuda_device, requires_grad=True)
+    y = torch.rand(1, 8, 8, 3, device=cuda_device)
+    launches = photometric_cuda.reprojection_loss.backward_launches
+    photometric_cuda.reprojection_loss(x, y).sum().backward()
+    torch.cuda.synchronize()
+    assert photometric_cuda.reprojection_loss.backward_launches == launches + 1
+    assert x.grad.shape == x.shape and torch.isfinite(x.grad).all()
+
+
+def _inputs(shape, device):
+    g = torch.Generator(device=device).manual_seed(1)
+    if shape == "zeros":
+        return torch.zeros((1, 32, 40, 3), device=device), torch.zeros(
+            (1, 32, 40, 3), device=device
+        )
+    return (torch.rand(shape, device=device, generator=g),
+            torch.rand(shape, device=device, generator=g))
+
+
+def _assert_grads_close(got, want):
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-5 * b.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 480, 640, 3), (2, 37, 53, 3), "zeros"])
+def test_reprojection_backward_kernel_matches_plain_on_card(cuda_device, shape):
+    x, y = _inputs(shape, cuda_device)
+    g = 0.5 + torch.rand(x.shape[:3] + (1,), device=cuda_device)
+    grads = []
+    for fn in (photometric_cuda.reprojection_loss,
+               photometric_cuda.reprojection_loss_plain):
+        a, b = x.clone().requires_grad_(), y.clone().requires_grad_()
+        launches = photometric_cuda.reprojection_loss.backward_launches
+        fn(a, b, 0.85).backward(g)
+        torch.cuda.synchronize()
+        if fn is photometric_cuda.reprojection_loss:
+            assert photometric_cuda.reprojection_loss.backward_launches == launches + 2
+        grads.append((a.grad, b.grad))
+    _assert_grads_close(*grads)
+
+
+@pytest.mark.cuda
+def test_reprojection_backward_kernel_takes_a_strided_gradient(cuda_device):
+    """Two maps concatenated on the last axis, as in the VO loss: each
+    map's incoming gradient is a stride-2 slice."""
+    a, t = _inputs((2, 48, 64, 3), cuda_device)
+    b = torch.rand_like(a)
+    w = torch.rand((2, 48, 64, 2), device=cuda_device)
+    grads = []
+    for fn in (photometric_cuda.reprojection_loss,
+               photometric_cuda.reprojection_loss_plain):
+        ga, gb = a.clone().requires_grad_(), b.clone().requires_grad_()
+        both = torch.cat([fn(ga, t, 0.85), fn(gb, t, 0.85)], dim=-1)
+        (both * w).sum().backward()
+        grads.append((ga.grad, gb.grad))
+    torch.cuda.synchronize()
+    _assert_grads_close(*grads)

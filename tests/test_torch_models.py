@@ -25,6 +25,10 @@ from deep_visual_slam_tpu.utils.torch_weights import convert_depthnet, convert_p
 from deep_visual_slam_torch.models import DepthNet, PoseNet
 from deep_visual_slam_torch.utils.weights import depthnet_from_jax, posenet_from_jax
 
+# One thread per test process: the tests run beside others, and torch's
+# default of one thread per core then spends its time waiting for cores.
+torch.set_num_threads(1)
+
 H, W = 64, 96
 
 

@@ -33,6 +33,10 @@ from deep_visual_slam_torch.utils.weights import depthnet_from_jax, posenet_from
 
 from test_torch_models import H, W, jax_variables
 
+# One thread per test process: the tests run beside others, and torch's
+# default of one thread per core then spends its time waiting for cores.
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("uncertainty", [False, True])
 def test_eval_step_matches_jax(monkeypatch, uncertainty):
