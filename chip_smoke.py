@@ -11,10 +11,12 @@ the run with a non-zero exit code and no result line:
    and the build of every kernel from ``deep_visual_slam_torch/csrc``.
 2. Kernel K1 (the SSIM+L1 reprojection map) against its plain PyTorch
    version on the card, at the step's [16, 480, 640, 3], a ragged
-   [2, 37, 53, 3] and an all-zero image (SSIM denominator C1*C2): max abs
-   difference, median times and the memory bound.
+   [2, 37, 53, 3], a [2, 17, 33, 3] whose last tile of the kernels is one
+   pixel wide and high, an all-zero image (SSIM denominator C1*C2) and
+   ``smooth_texture`` images at [2, 480, 640, 3]: max abs difference,
+   median times and the memory bound.
 3. K1's backward kernel against the plain version's autograd at the same
-   three inputs: dL/dpred and dL/dtarget, median times and the bound.
+   five inputs: dL/dpred and dL/dtarget, median times and the bound.
 4. Serving: ``Networks`` at 480x640, B=1, bf16 on 20 synthetic frames
    through ``depth``, ``pose`` and ``step``.
 5. Evaluation: the eval step, first at a small size in fp32 against the
@@ -145,22 +147,28 @@ def phase_card():
 
 
 def k1_inputs():
-    """The three K1 checks' inputs: the step's shape, a ragged shape that
-    exercises the reflected borders, and the all-zero image."""
+    """The K1 checks' inputs: the step's shape, a ragged shape and one whose
+    last 32 x 16 tile of the kernels is one column wide and one row high,
+    the all-zero image, and a pair of band-limited textures (the synthetic
+    data's), whose smooth windows make SSIM's ``Sxx/9 - mu^2`` cancel most."""
+    from deep_visual_slam_torch.data import smooth_texture
+
     g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape):
+        return torch.rand(shape, device="cuda", generator=g)
+
+    smooth = smooth_texture(np.random.default_rng(2), 4, 480, 640)
+    smooth = torch.from_numpy(np.ascontiguousarray(smooth)).to("cuda")
     return {
-        "random [16,480,640,3]": (
-            torch.rand((16, 480, 640, 3), device="cuda", generator=g),
-            torch.rand((16, 480, 640, 3), device="cuda", generator=g),
-        ),
-        "ragged [2,37,53,3]": (
-            torch.rand((2, 37, 53, 3), device="cuda", generator=g),
-            torch.rand((2, 37, 53, 3), device="cuda", generator=g),
-        ),
+        "random [16,480,640,3]": (rand(16, 480, 640, 3), rand(16, 480, 640, 3)),
+        "ragged [2,37,53,3]": (rand(2, 37, 53, 3), rand(2, 37, 53, 3)),
+        "tile edges [2,17,33,3]": (rand(2, 17, 33, 3), rand(2, 17, 33, 3)),
         "zeros [2,48,64,3]": (
             torch.zeros((2, 48, 64, 3), device="cuda"),
             torch.zeros((2, 48, 64, 3), device="cuda"),
         ),
+        "smooth_texture [2,480,640,3]": (smooth[:2], smooth[2:]),
     }
 
 
@@ -181,6 +189,14 @@ def phase_k1(rates):
         max_err = max(max_err, err)
 
     pred, target = cases["random [16,480,640,3]"]
+    # The kernel's means multiply by fl(1/9), as it takes PyTorch's CUDA
+    # division of a tensor by a Python scalar to do: held on this card.
+    quotient = pred / 9.0
+    inv9 = (torch.tensor(1.0) / 9.0).to("cuda")
+    check(torch.equal(quotient, pred * inv9), "x / 9.0 is x * fl(1/9) on the card")
+    rounded = (pred.double() / 9.0).float()
+    print(f"  x / 9.0 equals x * fl(1/9) on all {pred.numel()} values; it differs "
+          f"from the correctly rounded quotient on {int((quotient != rounded).sum())}")
     B, H, W, C = pred.shape
     ms = cuda_ms(lambda: k1.reprojection_loss(pred, target, 0.85), 50)
     plain_ms = cuda_ms(lambda: k1.reprojection_loss_plain(pred, target, 0.85), 10)

@@ -22,6 +22,8 @@ from deep_visual_slam_torch.utils import cuda_build
 
 _C1 = 0.01**2
 _C2 = 0.03**2
+# The kernels keep a tile of every channel in shared memory.
+MAX_CHANNELS = 16
 
 
 def _reflect_index(n: int, device) -> torch.Tensor:
@@ -76,7 +78,8 @@ def reprojection_loss_plain(
 _ARGTYPES = {  # the C entry points of csrc/reprojection.cu
     "reprojection_loss_forward": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
-    "reprojection_loss_backward": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    "reprojection_loss_backward": [ctypes.c_void_p] * 3
+    + [ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 4
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
 }
 
@@ -117,14 +120,16 @@ def _check(pred: torch.Tensor, target: torch.Tensor) -> None:
     B, H, W, C = pred.shape
     if H < 2 or W < 2:
         raise ValueError(f"reflect padding needs H, W >= 2, got {H}x{W}")
-    if not 1 <= B <= 65535 or C < 1:
+    if not 1 <= B <= 65535 or not 1 <= C <= MAX_CHANNELS:
         raise ValueError(f"unsupported batch {B} or channel count {C}")
 
 
-def _contiguous_grad(g: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+def _grad_view(g: torch.Tensor, pred: torch.Tensor) -> tuple[torch.Tensor, int]:
     """dL/dout as the backward kernel takes it: fp32 [B, H, W, 1] on pred's
-    device, contiguous. The maps are concatenated on the last axis in the VO
-    loss, so their gradients arrive as strided slices and are copied here."""
+    device, and the stride between its pixels. The VO loss concatenates the
+    maps on the last axis, so each map's gradient arrives as a stride-2
+    slice: a view whose pixel stride is uniform over B*H*W (0 for an
+    expanded gradient) is passed as it is; any other is copied contiguous."""
     if g.device != pred.device:
         raise ValueError(f"gradient on {g.device}, inputs on {pred.device}")
     if g.dtype != torch.float32:
@@ -133,7 +138,11 @@ def _contiguous_grad(g: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"gradient shape {tuple(g.shape)} is not {tuple(pred.shape[:3]) + (1,)}"
         )
-    return g.contiguous()
+    B, H, W = g.shape[:3]
+    s = g.stride(2)
+    if (B == 1 or g.stride(0) == s * H * W) and (H == 1 or g.stride(1) == s * W):
+        return g, s
+    return g.contiguous(), 1
 
 
 def _forward_kernel(
@@ -157,17 +166,16 @@ def reprojection_loss_backward(
     ssim_ratio: float = 0.85,
 ) -> torch.Tensor:
     """dL/dpred of :func:`reprojection_loss` by the backward kernel, given
-    ``g`` = dL/dout [B, H, W, 1] (any strides); called with pred and target
-    swapped it gives dL/dtarget. CUDA tensors only; the launch is counted
-    in ``reprojection_loss.backward_launches``."""
+    ``g`` = dL/dout [B, H, W, 1] (any strides), in one launch; called with
+    pred and target swapped it gives dL/dtarget. CUDA tensors only; the
+    launch is counted in ``reprojection_loss.backward_launches``."""
     _check(pred, target)
-    g = _contiguous_grad(g, pred)
+    g, g_stride = _grad_view(g, pred)
     B, H, W, C = pred.shape
-    coef = torch.empty((3, C, B, H, W), device=pred.device, dtype=torch.float32)
     grad = torch.empty_like(pred)
     _launch(
         "reprojection_loss_backward", pred.device,
-        pred.data_ptr(), target.data_ptr(), g.data_ptr(), coef.data_ptr(),
+        pred.data_ptr(), target.data_ptr(), g.data_ptr(), g_stride,
         grad.data_ptr(), B, H, W, C, ssim_ratio, 1.0 - ssim_ratio,
     )
     reprojection_loss.backward_launches += 1

@@ -38,7 +38,7 @@ CONFIG = Path(__file__).resolve().parents[1] / "configs" / "vo.yaml"
 # Kernel-name fragments of the groups whose device time is summed.
 GROUPS = {
     "K1 reprojection_loss_kernel": ("reprojection_loss_kernel",),
-    "K1 backward (both passes)": ("reprojection_grad_",),
+    "K1 reprojection_grad_kernel": ("reprojection_grad_kernel",),
     "Adam (foreach)": ("multi_tensor_apply",),
     "cuDNN convolution": ("xmma", "cudnn", "convolve_"),
     "grid_sample": ("grid_sampler",),

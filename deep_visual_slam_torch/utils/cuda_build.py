@@ -34,14 +34,16 @@ SOURCES: Dict[str, tuple] = {
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): on PATH,
+    else under ``$CUDA_HOME``, ``$CUDA_PATH`` or ``/usr/local/cuda``."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = Path(home) / "bin" / "nvcc"
+    path = Path(home) / "bin" / name
     if not path.exists():
-        raise RuntimeError(f"nvcc not found on PATH or at {path}")
+        raise RuntimeError(f"{name} not found on PATH or at {path}")
     return str(path)
 
 
@@ -66,7 +68,7 @@ def build_all(sources: Sequence[str] | None = None) -> float:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *COMMON_FLAGS, *SOURCES[source], "-o", str(tmp),
+        cmd = [cuda_tool("nvcc"), *COMMON_FLAGS, *SOURCES[source], "-o", str(tmp),
                str(CSRC / source)]
         procs.append((source, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True

@@ -8,7 +8,12 @@ nothing of JAX, so it also runs where JAX is not installed; the repo's
     python3 -m pytest tests/test_torch_kernels.py --noconftest -o addopts="" -m cuda
 
 K1 and its plain version are both fp32 with the same tap order, so they
-agree to a few ulp: atol 1e-5. K1's backward kernel and the plain version's
+agree to a few ulp: atol 1e-5. The shapes put the kernels' 32 x 16 output
+tiles against the image's edges: H = 17 and W = 33 leave a tile of one row
+and one column, (1, 2, 2, 3) is the smallest image the reflect padding takes,
+(1, 3, 5, 3) reaches the 2-pixel halo's clamp, and C = 1 and C = 8 take the
+kernels' other channel counts (C = 8 with more than 48 KB of shared memory
+in the backward). K1's backward kernel and the plain version's
 autograd take their sums in other orders (and the plain one's
 reflect-padding backward adds with atomics): atol 2e-5 x the largest
 gradient.
@@ -27,8 +32,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
+SHAPES = [(2, 480, 640, 3), (2, 37, 53, 3), (2, 17, 33, 3), (1, 2, 2, 3),
+          (1, 3, 5, 3), (2, 37, 53, 1), (1, 19, 35, 8), "zeros"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 480, 640, 3), (2, 37, 53, 3), "zeros"])
+@pytest.mark.parametrize("shape", SHAPES)
 def test_reprojection_kernel_matches_plain_on_card(cuda_device, shape):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     if shape == "zeros":  # the SSIM denominator falls to C1 * C2
@@ -56,6 +65,9 @@ def test_reprojection_kernel_rejects_what_it_cannot_take(cuda_device):
         photometric_cuda.reprojection_loss(x[:, :1], x[:, :1])
     with pytest.raises(ValueError):  # one input on the CPU
         photometric_cuda.reprojection_loss(x, x.cpu())
+    wide = torch.rand(1, 8, 8, photometric_cuda.MAX_CHANNELS + 1, device=cuda_device)
+    with pytest.raises(ValueError):  # more channels than the tiles hold
+        photometric_cuda.reprojection_loss(wide, wide)
 
 
 @pytest.mark.cuda
@@ -85,7 +97,7 @@ def _assert_grads_close(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 480, 640, 3), (2, 37, 53, 3), "zeros"])
+@pytest.mark.parametrize("shape", SHAPES)
 def test_reprojection_backward_kernel_matches_plain_on_card(cuda_device, shape):
     x, y = _inputs(shape, cuda_device)
     g = 0.5 + torch.rand(x.shape[:3] + (1,), device=cuda_device)
@@ -118,3 +130,20 @@ def test_reprojection_backward_kernel_takes_a_strided_gradient(cuda_device):
         grads.append((ga.grad, gb.grad))
     torch.cuda.synchronize()
     _assert_grads_close(*grads)
+
+
+@pytest.mark.cuda
+def test_reprojection_backward_kernel_leaves_a_strided_gradient_uncopied(cuda_device):
+    """A stride-2 gradient, as the VO loss hands each map, goes to the kernel
+    as it is (pointer and stride, no copy), and the kernel's dL/dpred matches
+    the plain version's autograd on it."""
+    x, y = _inputs((2, 37, 53, 3), cuda_device)
+    both = 0.5 + torch.rand((2, 37, 53, 2), device=cuda_device)
+    g = both[..., 1:]
+    view, stride = photometric_cuda._grad_view(g, x)
+    assert stride == 2 and view.data_ptr() == g.data_ptr()
+    got = photometric_cuda.reprojection_loss_backward(x, y, g, 0.85)
+    a = x.clone().requires_grad_()
+    photometric_cuda.reprojection_loss_plain(a, y, 0.85).backward(g)
+    torch.cuda.synchronize()
+    _assert_grads_close((got,), (a.grad,))

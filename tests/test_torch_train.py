@@ -75,52 +75,90 @@ def test_reprojection_grad_cpu_matches_jax(rng, shape):
             )
 
 
-def _gather_backward(x, y, g, ratio):
-    """The CUDA backward kernel's formulation (``csrc/reprojection.cu``,
-    passes A and B) written in torch: per-pixel coefficients of the window
-    sums, then a gather over the 3x3 neighbours with the reflect padding's
-    multiplicities. The kernel itself runs only on the card
-    (``tests/test_torch_kernels.py``); this checks its algebra here."""
+def _fill_index(i, n):
+    """The kernel's halo rule: the reflection for i in [-1, n], beyond it
+    (read only for pixels outside the image) clamped into the image."""
+    r = torch.where(i < 0, -i, torch.where(i >= n, 2 * n - 2 - i, i))
+    return r.clamp(0, n - 1)
+
+
+def _multiplicity(p, q, n):
+    """Taps of neighbour p's reflect-padded window that land on q, per axis."""
+    return 1.0 + ((p == 0) & (q == 1)) + ((p == n - 1) & (q == n - 2))
+
+
+def _gather_backward(x, y, g, ratio, tile=(3, 4)):
+    """The CUDA backward kernel's formulation (``csrc/reprojection.cu``)
+    written in torch, tile by tile at a small tile of TH x TW outputs: the
+    tile's pred and target with a 2-pixel halo filled by the kernel's halo
+    rule; the coefficients of the window sums of every pixel of the tile
+    plus a 1-pixel halo, 0 outside the image; their gather onto the tile's
+    pixels with the reflect padding's multiplicities at the image's edges.
+    The kernel itself runs only on the card (``tests/test_torch_kernels.py``);
+    this checks its algebra and its tiling here."""
     B, H, W, C = x.shape
-    ih = photometric_cuda._reflect_index(H, x.device)
-    iw = photometric_cuda._reflect_index(W, x.device)
+    TH, TW = tile
+    grad = torch.empty_like(x)
+    for y0 in range(0, H, TH):
+        for x0 in range(0, W, TW):
+            iy = _fill_index(torch.arange(y0 - 2, y0 + TH + 2), H)
+            ix = _fill_index(torch.arange(x0 - 2, x0 + TW + 2), W)
+            xt, yt = (a.index_select(1, iy).index_select(2, ix) for a in (x, y))
 
-    def window_sum(a):  # [B, H+2, W+2, C] -> [B, H, W, C]
-        return sum(a[:, i : i + H, j : j + W] for i in range(3) for j in range(3))
+            def window_sum(a):  # [B, TH+4, TW+4, C] -> [B, TH+2, TW+2, C]
+                return sum(a[:, i : i + TH + 2, j : j + TW + 2]
+                           for i in range(3) for j in range(3))
 
-    xp = x.index_select(1, ih).index_select(2, iw)
-    yp = y.index_select(1, ih).index_select(2, iw)
-    mu_x, mu_y = window_sum(xp) / 9.0, window_sum(yp) / 9.0
-    sigma_x = window_sum(xp * xp) / 9.0 - mu_x * mu_x
-    sigma_y = window_sum(yp * yp) / 9.0 - mu_y * mu_y
-    sigma_xy = window_sum(xp * yp) / 9.0 - mu_x * mu_y
-    a1, a2 = 2.0 * mu_x * mu_y + 0.01**2, 2.0 * sigma_xy + 0.03**2
-    b1, b2 = mu_x * mu_x + mu_y * mu_y + 0.01**2, sigma_x + sigma_y + 0.03**2
-    n, d = a1 * a2, b1 * b2
-    u = (1.0 - n / d) * 0.5
-    g_u = g * ratio / C * ((u >= 0) & (u <= 1))
-    g_n, g_d = -0.5 * g_u / d, 0.5 * g_u * (n / d) / d
-    g_sigma_x, g_sigma_xy = g_d * b1, 2.0 * g_n * a1
-    g_mu_x = (2.0 * mu_y * (g_n * a2) + 2.0 * mu_x * (g_d * b2)
-              - 2.0 * mu_x * g_sigma_x - mu_y * g_sigma_xy)
-    coef = [g_mu_x / 9.0, g_sigma_x / 9.0, g_sigma_xy / 9.0]
+            mu_x, mu_y = window_sum(xt) / 9.0, window_sum(yt) / 9.0
+            sigma_x = window_sum(xt * xt) / 9.0 - mu_x * mu_x
+            sigma_y = window_sum(yt * yt) / 9.0 - mu_y * mu_y
+            sigma_xy = window_sum(xt * yt) / 9.0 - mu_x * mu_y
+            a1, a2 = 2.0 * mu_x * mu_y + 0.01**2, 2.0 * sigma_xy + 0.03**2
+            b1, b2 = mu_x * mu_x + mu_y * mu_y + 0.01**2, sigma_x + sigma_y + 0.03**2
+            n, d = a1 * a2, b1 * b2
+            u = (1.0 - n / d) * 0.5
+            py = torch.arange(y0 - 1, y0 + TH + 1)
+            px = torch.arange(x0 - 1, x0 + TW + 1)
+            inside = (((py >= 0) & (py < H))[:, None, None]
+                      & ((px >= 0) & (px < W))[None, :, None])
+            gp = g.index_select(1, py.clamp(0, H - 1)).index_select(2, px.clamp(0, W - 1))
+            g_u = gp * ratio / C * ((u >= 0) & (u <= 1)) * inside
+            h9 = g_u * (0.5 / 9.0) / d
+            g_n2, g_d = -2.0 * h9, h9 * (n / d)  # 2 dL/dn / 9, dL/dd / 9
+            coef = [mu_y * g_n2 * (a2 - a1) + 2.0 * mu_x * g_d * (b2 - b1),
+                    g_d * b1, g_n2 * a1]
 
-    def weights(size, shift):  # taps of neighbour q + shift landing on q
-        q = torch.arange(size)
-        p = q + shift
-        w = 1.0 + ((p == 0) & (q == 1)) + ((p == size - 1) & (q == size - 2))
-        return torch.where((p >= 0) & (p < size), w, 0.0)
+            qy, qx = torch.arange(y0, y0 + TH), torch.arange(x0, x0 + TW)
+            sums = [sum(
+                _multiplicity(qy + i - 1, qy, H)[:, None, None]
+                * _multiplicity(qx + j - 1, qx, W)[None, :, None]
+                * k[:, i : i + TH, j : j + TW]
+                for i in range(3) for j in range(3)
+            ) for k in coef]
+            xq, yq = xt[:, 2 : TH + 2, 2 : TW + 2], yt[:, 2 : TH + 2, 2 : TW + 2]
+            gq = gp[:, 1 : TH + 1, 1 : TW + 1]
+            dx = (sums[0] + 2.0 * xq * sums[1] + yq * sums[2]
+                  - gq * (1.0 - ratio) / C * torch.sign(yq - xq))
+            h, w = min(TH, H - y0), min(TW, W - x0)
+            grad[:, y0 : y0 + h, x0 : x0 + w] = dx[:, :h, :w]
+    return grad
 
-    sums = []
-    for c in coef:
-        cp = torch.nn.functional.pad(c, (0, 0, 1, 1, 1, 1))
-        sums.append(sum(
-            weights(H, i)[:, None, None] * weights(W, j)[None, :, None]
-            * cp[:, 1 + i : 1 + i + H, 1 + j : 1 + j + W]
-            for i in (-1, 0, 1) for j in (-1, 0, 1)
-        ))
-    return (sums[0] + 2.0 * x * sums[1] + y * sums[2]
-            - g * (1.0 - ratio) / C * torch.sign(y - x))
+
+def test_grad_view_passes_uniform_strides_uncopied():
+    """The backward kernel takes dL/dout as a pointer and a pixel stride:
+    the VO loss's stride-2 slice and an expanded gradient (stride 0) pass
+    as they are; a view with other strides is copied contiguous."""
+    x = torch.zeros(2, 5, 7, 3)
+    both = torch.rand(2, 5, 7, 2)
+    for g, stride in ((both[..., 1:], 2), (torch.ones(()).expand(2, 5, 7, 1), 0),
+                      (both[..., :1].contiguous(), 1)):
+        view, s = photometric_cuda._grad_view(g, x)
+        assert s == stride and view.data_ptr() == g.data_ptr()
+    g = torch.rand(2, 7, 5, 1).transpose(1, 2)
+    view, s = photometric_cuda._grad_view(g, x)
+    assert s == 1 and view.is_contiguous() and torch.equal(view, g)
+    with pytest.raises(ValueError):
+        photometric_cuda._grad_view(both, x)
 
 
 @pytest.mark.parametrize("wrt", ["pred", "both"])
