@@ -5,6 +5,10 @@ from deep_visual_slam_torch.ops.se3 import (
     transformation_from_parameters,
     translation_matrix,
     invert_se3,
+    axisangle_from_rotation,
+    se3_exp,
+    se3_inv,
+    se3_log,
 )
 from deep_visual_slam_torch.ops.depth import disp_to_depth
 from deep_visual_slam_torch.ops.camera import (
@@ -30,6 +34,10 @@ __all__ = [
     "transformation_from_parameters",
     "translation_matrix",
     "invert_se3",
+    "axisangle_from_rotation",
+    "se3_exp",
+    "se3_inv",
+    "se3_log",
     "disp_to_depth",
     "pixel_grid",
     "backproject",

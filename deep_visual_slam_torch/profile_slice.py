@@ -3,15 +3,23 @@
     python3 -m deep_visual_slam_torch.profile_slice
 
 Runs ``make_vo_train_step`` and ``make_vo_eval_step`` at the
-``configs/vo.yaml`` size (B=16, 480x640, bf16) and ``Networks.step`` at B=1
-under ``torch.profiler``, after warm-up, with random weights from the
-config's seed. For each path it prints the wall time per step (host clock,
-synchronised, over steps run without the profiler, whose tracing slows the
-host), the summed device time of all kernels per step (profiled steps;
-annotation ranges such as ``Optimizer.step`` are not kernels and are left
-out) and its share of the wall time (the busy share; the rest is the card
-waiting on the host), and the kernels with the most device time, in groups
-and by kernel. Fails if the profiler records no device time.
+``configs/vo.yaml`` size (B=16, 480x640, bf16), ``Networks.step`` at B=1 and
+the SLAM loop (``MonoVO`` at 480x640 with bf16 networks, ``num_kf=7``,
+``max_points=256``, BA levels (2, 1)) under ``torch.profiler``, after
+warm-up, with random weights from the config's seed. The SLAM keyframes
+are the uint8 frames of a fast ``synthetic_multidepth_sequence`` sweep,
+each made a keyframe (with its windowed BA) by a ``min_tracks`` bar above
+the track table's size; then the BA solve of the last window alone; then
+non-keyframes: the last frame fed again with an identity odometry
+(``oracle_rel``), a static camera.
+
+For each path it prints the wall time per step (host clock, synchronised,
+over steps run without the profiler, whose tracing slows the host), the
+summed device time of all kernels per step and the kernel launches per step
+(profiled steps; annotation ranges such as ``Optimizer.step`` are not
+kernels and are left out), the busy share (device over wall time; the rest
+is the card waiting on the host), and the kernels with the most device
+time, in groups and by kernel. Fails if the profiler records no device time.
 """
 
 from __future__ import annotations
@@ -23,8 +31,12 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from deep_visual_slam_torch.data import smooth_texture, synthetic_vo_batch
-from deep_visual_slam_torch.slam import Networks
+from deep_visual_slam_torch.data import (
+    smooth_texture,
+    synthetic_multidepth_sequence,
+    synthetic_vo_batch,
+)
+from deep_visual_slam_torch.slam import MonoVO, Networks
 from deep_visual_slam_torch.training import (
     TrainState,
     VOLossConfig,
@@ -40,9 +52,11 @@ GROUPS = {
     "K1 reprojection_loss_kernel": ("reprojection_loss_kernel",),
     "K1 reprojection_grad_kernel": ("reprojection_grad_kernel",),
     "Adam (foreach)": ("multi_tensor_apply",),
-    "cuDNN convolution": ("xmma", "cudnn", "convolve_"),
+    "cuDNN convolution": ("xmma_fprop", "xmma_dgrad", "xmma_wgrad", "cudnn", "convolve_"),
     "grid_sample": ("grid_sampler",),
     "torch.cat": ("CatArray",),
+    "index / gather / scatter": ("index", "gather", "scatter"),
+    "cuBLAS / cuSOLVER": ("xmma_gemm", "gemv", "potrf", "potrs", "trsm", "cublas", "cusolver"),
 }
 
 
@@ -68,12 +82,13 @@ def _profile(label: str, fn, reps: int, top: int = 12) -> None:
         and not e.is_user_annotation
     ]
     device_us = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows)
     if device_us <= 0:
         raise RuntimeError(f"{label}: the profiler recorded no device time")
     print(
         f"{label}: {wall_us / 1e3:.3f} ms/step wall ({profiled_us / 1e3:.3f} "
-        f"under the profiler), {device_us / 1e3:.3f} ms device, busy share "
-        f"{device_us / wall_us:.1%} ({reps} steps each)"
+        f"under the profiler), {device_us / 1e3:.3f} ms device in {launches} "
+        f"kernels and copies, busy share {device_us / wall_us:.1%} ({reps} steps each)"
     )
     for group, keys in GROUPS.items():
         us = sum(r[0] for r in rows if any(k in r[2] for k in keys))
@@ -114,6 +129,51 @@ def main() -> None:
     frames = (frames * 255).round().astype(np.uint8)
     nets = Networks(dtype=getattr(torch, train["compute_dtype"]), seed=0)
     _profile("Networks.step B=1", lambda: nets.step(frames[0], frames[1]), reps=20)
+    _profile_slam(nets)
+
+
+def _profile_slam(nets: Networks) -> None:
+    H, W = 480, 640
+    # A fast sweep (0.02 m, 0.004 rad a step).
+    frames, K, _, _ = synthetic_multidepth_sequence(
+        26, H, W, seed=100, step_translation=0.02, step_rotation=0.004
+    )
+    frames = (frames * 255).round().astype(np.uint8)
+    vo = MonoVO(K, networks=nets)
+    for frame in frames[:4]:
+        vo.process_frame(frame)
+    size = "480x640 uint8, bf16 networks, num_kf=7, max_points=256"
+    queue = iter(frames[4:])
+
+    def keyframe():
+        n = vo.n_keyframes
+        vo.process_frame(next(queue))
+        if vo.n_keyframes == n:
+            raise RuntimeError("a frame of the fast sweep was not a keyframe")
+
+    # Fewer live tracks than min_tracks forces a keyframe: with the bar
+    # above the table's size every frame is one, whatever its score.
+    min_tracks, vo.klt.min_tracks = vo.klt.min_tracks, vo.klt.P + 1
+    _profile(f"SLAM keyframe {size}", keyframe, reps=10)
+    vo.klt.min_tracks = min_tracks
+    window = vo.mp.keyframes[-vo.mp.num_kf:]
+    built = vo.mp._build_problem(K, window, vo.mp.max_points, pad_frames=vo.mp.num_kf)
+    if built is None:
+        raise RuntimeError("the last window's keyframes share no track")
+    _profile(f"BA solve, window of {len(window)}, levels (2, 1) x 6 iterations",
+             lambda: vo.mp.solve(built[0], len(window)), reps=10)
+
+    # The last frame again with an identity odometry: a static camera, no
+    # keyframe.
+    still = np.eye(4)
+
+    def non_keyframe():
+        n = vo.n_keyframes
+        vo.process_frame(frames[-1], oracle_rel=still)
+        if vo.n_keyframes != n:
+            raise RuntimeError("a static frame became a keyframe")
+
+    _profile(f"SLAM non-keyframe {size}", non_keyframe, reps=20)
 
 
 if __name__ == "__main__":
