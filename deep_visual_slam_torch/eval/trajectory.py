@@ -15,12 +15,10 @@ def positions(poses: np.ndarray) -> np.ndarray:
 
 
 def umeyama_alignment(
-    poses_pred: np.ndarray, poses_gt: np.ndarray, reference_scale_bug: bool = False
+    poses_pred: np.ndarray, poses_gt: np.ndarray
 ) -> Tuple[np.ndarray, float, np.ndarray, np.ndarray]:
     """7-DoF similarity alignment of pred onto gt: (poses_aligned, scale,
-    R, t) with ``p_aligned = s R p_pred + t``. ``reference_scale_bug``
-    keeps the reference's unnormalized scale ``sum(S) / var_pred`` (off by
-    a factor of N), for side-by-side numbers only."""
+    R, t) with ``p_aligned = s R p_pred + t``."""
     p = positions(poses_pred).astype(np.float64)
     g = positions(poses_gt).astype(np.float64)
     mu_p, mu_g = p.mean(axis=0), g.mean(axis=0)
@@ -32,8 +30,7 @@ def umeyama_alignment(
         Vt[-1, :] *= -1
         R = Vt.T @ U.T
     var_p = np.mean(np.sum(pc**2, axis=1))
-    n = 1 if reference_scale_bug else p.shape[0]
-    scale = float(np.sum(S) / (n * var_p)) if var_p > 1e-8 else 1.0
+    scale = float(np.sum(S) / (p.shape[0] * var_p)) if var_p > 1e-8 else 1.0
     t = mu_g - scale * R @ mu_p
     aligned = []
     for T in np.asarray(poses_pred, np.float64):
@@ -45,17 +42,13 @@ def umeyama_alignment(
 
 
 def ate_rmse(
-    poses_pred: np.ndarray,
-    poses_gt: np.ndarray,
-    align: bool = True,
-    reference_scale_bug: bool = False,
+    poses_pred: np.ndarray, poses_gt: np.ndarray, align: bool = True
 ) -> Tuple[float, np.ndarray, Dict]:
     """Absolute trajectory error RMSE after an optional Umeyama alignment:
-    (rmse, aligned poses, stats)."""
+    (rmse, aligned poses, stats). ``align=False`` gives the unaligned RMSE
+    of the positions."""
     if align:
-        aligned, scale, _, _ = umeyama_alignment(
-            poses_pred, poses_gt, reference_scale_bug=reference_scale_bug
-        )
+        aligned, scale, _, _ = umeyama_alignment(poses_pred, poses_gt)
     else:
         aligned, scale = np.asarray(poses_pred, np.float64), 1.0
     err = np.linalg.norm(positions(aligned) - positions(poses_gt), axis=1)

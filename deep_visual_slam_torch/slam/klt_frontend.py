@@ -39,15 +39,15 @@ class KLTFrontend:
     """Fixed-size device track table and the per-frame net + track step.
 
     ``intrinsic``: the 4x4 (or 3x3) intrinsics for the keyframe score's
-    rotation homography ``K R K^-1``; None keeps the reference's bare
-    ``R`` on pixel coordinates (a bug upstream, kept as its bug-compat
-    mode). ``device`` must be the networks' device; None means CUDA.
+    rotation homography ``K R K^-1``. ``device`` must be the networks'
+    device; None means CUDA.
     """
 
     def __init__(
         self,
         networks,
         image_shape: Tuple[int, int],
+        intrinsic: np.ndarray,
         max_tracks: int = 256,
         levels: int = 4,
         win: int = 4,
@@ -55,7 +55,6 @@ class KLTFrontend:
         max_err: float = 0.08,
         nms_radius: int = 7,
         min_tracks: int = 24,
-        intrinsic: Optional[np.ndarray] = None,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -65,7 +64,7 @@ class KLTFrontend:
             )
         self.nn = networks
         self.P = max_tracks
-        self.K3 = None if intrinsic is None else np.asarray(intrinsic, np.float64)[:3, :3]
+        self.K3 = np.asarray(intrinsic, np.float64)[:3, :3]
         self.levels = levels
         self.win = win
         self.iters = iters
@@ -133,9 +132,8 @@ class KLTFrontend:
         d = p1 - p2
         f = float(np.sqrt(np.mean(np.sum(d * d, axis=1))))
 
-        Ht = last_kf_pose[:3, :3] @ np.linalg.inv(pose_global[:3, :3])
-        if self.K3 is not None:
-            Ht = self.K3 @ Ht @ np.linalg.inv(self.K3)
+        R = last_kf_pose[:3, :3] @ np.linalg.inv(pose_global[:3, :3])
+        Ht = self.K3 @ R @ np.linalg.inv(self.K3)
         p = (Ht @ np.concatenate([p2, np.ones((n, 1))], axis=1).T).T
         proj = p[:, :2] / np.maximum(np.abs(p[:, 2:3]), 1e-9) * np.sign(p[:, 2:3])
         dt = p1 - proj

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from deep_visual_slam_torch import resolve_device
-from deep_visual_slam_torch.slam.ba import BAProblem, photometric_ba, photometric_ba_pyramid
+from deep_visual_slam_torch.slam.ba import BAProblem, photometric_ba_pyramid
 from deep_visual_slam_torch.slam.frontend import Frame, Point
 
 
@@ -243,18 +243,14 @@ class Map:
 
     def solve(self, problem: BAProblem, num_real: int, iters: int = 6):
         """The windowed solve of ``optimize`` on a built problem: the BA
-        pyramid at ``ba_levels`` (one level: ``photometric_ba``), queued on
-        the device with no host synchronisation."""
-        kwargs = dict(
+        pyramid at ``ba_levels``, queued on the device with no host
+        synchronisation."""
+        return photometric_ba_pyramid(
+            problem, levels=self.ba_levels,
+            iters_per_level=(iters,) * len(self.ba_levels),
             depth_damping=self.depth_damping, prior_weight=self.pose_prior_weight,
             num_real=num_real, estimate_affine=self.estimate_affine,
             huber_delta=self.huber_delta,
-        )
-        if self.ba_levels == (1,):
-            return photometric_ba(problem, num_iters=iters, **kwargs)
-        return photometric_ba_pyramid(
-            problem, levels=self.ba_levels,
-            iters_per_level=(iters,) * len(self.ba_levels), **kwargs,
         )
 
     def _write_back(self, frames, points, poses, depths) -> None:

@@ -201,8 +201,7 @@ class MonoVO:
         self._zero_unc = None  # shared read-only zero uncertainty map
         self.fetch_depth = fetch_depth
         self.klt = KLTFrontend(
-            self.nn, image_shape, max_tracks=max_points, intrinsic=self.intrinsic,
-            device=self.device,
+            self.nn, image_shape, self.intrinsic, max_tracks=max_points, device=self.device,
         )
 
     def _zero_uncertainty(self, shape) -> np.ndarray:

@@ -31,13 +31,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np  # noqa: E402
 
 
-def translation_rmse(traj_wc: np.ndarray, gt_cw: np.ndarray) -> float:
-    """Unaligned RMSE of the camera centres (T_wc translations) against GT."""
-    gt_wc = np.linalg.inv(np.asarray(gt_cw, np.float64))
-    d = traj_wc[:, :3, 3] - gt_wc[:, :3, 3]
-    return float(np.sqrt(np.mean(np.sum(d * d, axis=-1))))
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--size", type=int, nargs=2, default=(480, 640), metavar=("H", "W"))
@@ -58,6 +51,7 @@ def main() -> None:
     )
     oracle = make_oracle_inits(gt_cw, gt_depths, args.seed, 0.3, 0.005, 0.0)
     nets = Networks(image_shape=(H, W), dtype=jnp.float32)
+    gt_wc = np.linalg.inv(np.asarray(gt_cw, np.float64))
     out = {"size": [H, W], "frames": args.frames, "seed": args.seed}
     for name, optimize in (("no_ba", False), ("windowed_ba", True)):
         vo = MonoVO(K, networks=nets, image_shape=(H, W))
@@ -68,8 +62,8 @@ def main() -> None:
         traj = vo.trajectory()
         out[name] = {
             "keyframes": sorted(f.id for f in vo.mp.frames if f.anchor is f),
-            "translation_rmse": translation_rmse(traj, gt_cw),
-            "ate_rmse": ate_rmse(traj, np.linalg.inv(np.asarray(gt_cw, np.float64)))[0],
+            "translation_rmse": ate_rmse(traj, gt_wc, align=False)[0],
+            "ate_rmse": ate_rmse(traj, gt_wc)[0],
             "seconds": time.perf_counter() - t0,
         }
         print(name, out[name], flush=True)

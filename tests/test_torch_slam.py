@@ -162,23 +162,22 @@ def test_monovo_lazy_depth_fetch():
     np.testing.assert_array_equal(trajs[0], trajs[1])
 
 
-@pytest.mark.parametrize("reference_scale_bug", [False, True])
-def test_ate_rmse_matches_jax(reference_scale_bug):
-    """Umeyama sim(3) alignment and ATE (float64 numpy on both sides), with
-    the reference's unnormalized-scale mode: within 1e-12."""
+@pytest.mark.parametrize("align", [True, False])
+def test_ate_rmse_matches_jax(align):
+    """ATE after a Umeyama sim(3) alignment and the unaligned RMSE (float64
+    numpy on both sides): within 1e-12."""
     rng = np.random.default_rng(4)
     gt = np.tile(np.eye(4), (12, 1, 1))
     gt[:, :3, 3] = np.cumsum(rng.normal(0, 0.05, (12, 3)), axis=0)
     pred = gt.copy()
     pred[:, :3, 3] = 1.7 * gt[:, :3, 3] @ np.linalg.qr(rng.normal(size=(3, 3)))[0] + 0.3
     pred[:, :3, 3] += rng.normal(0, 0.01, (12, 3))
-    for align in (True, False):
-        got = trajectory.ate_rmse(pred, gt, align, reference_scale_bug)
-        want = jtrajectory.ate_rmse(pred, gt, align, reference_scale_bug)
-        assert abs(got[0] - want[0]) <= 1e-12
-        np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-12)
-        for k, v in want[2].items():
-            assert abs(got[2][k] - v) <= 1e-12, k
+    got = trajectory.ate_rmse(pred, gt, align)
+    want = jtrajectory.ate_rmse(pred, gt, align)
+    assert abs(got[0] - want[0]) <= 1e-12
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-12)
+    for k, v in want[2].items():
+        assert abs(got[2][k] - v) <= 1e-12, k
 
 
 def test_device_image_cache_bounded_without_keyframes():
@@ -244,4 +243,4 @@ def test_entry_points_refuse_what_is_not_there():
     with pytest.raises(RuntimeError, match="CUDA"):
         MonoVO(K, networks=Networks(dtype=torch.float32, device="cpu"))
     with pytest.raises(RuntimeError, match="CUDA"):
-        KLTFrontend(Networks(dtype=torch.float32, device="cpu"), (H, W))
+        KLTFrontend(Networks(dtype=torch.float32, device="cpu"), (H, W), K)
