@@ -11,7 +11,9 @@ are the uint8 frames of a fast ``synthetic_multidepth_sequence`` sweep,
 each made a keyframe (with its windowed BA) by a ``min_tracks`` bar above
 the track table's size; then the BA solve of the last window alone; then
 non-keyframes: the last frame fed again with an identity odometry
-(``oracle_rel``), a static camera.
+(``oracle_rel``), a static camera; then the rest of the sweep as
+keyframes and the global BA solve over the whole keyframe history (~60
+keyframes, the F bucket 64).
 
 For each path it prints the wall time per step (host clock, synchronised,
 over steps run without the profiler, whose tracing slows the host), the
@@ -60,7 +62,13 @@ GROUPS = {
 }
 
 
-def _profile(label: str, fn, reps: int, top: int = 12) -> None:
+def device_profile(fn, reps: int) -> dict:
+    """Two warm calls of ``fn``, then ``reps`` calls timed on the host clock
+    and ``reps`` more under ``torch.profiler``, each group ended by a
+    synchronise. Returns the per-call ``wall_ms``, ``profiled_ms`` (wall
+    under the profiler), ``device_ms`` (the summed time of the kernels and
+    copies), ``launches`` and ``rows`` ((device us, count, name) per
+    kernel, per call); raises if the profiler recorded no device time."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -82,13 +90,21 @@ def _profile(label: str, fn, reps: int, top: int = 12) -> None:
         and not e.is_user_annotation
     ]
     device_us = sum(r[0] for r in rows)
-    launches = sum(r[1] for r in rows)
     if device_us <= 0:
-        raise RuntimeError(f"{label}: the profiler recorded no device time")
+        raise RuntimeError("the profiler recorded no device time")
+    return {
+        "wall_ms": wall_us / 1e3, "profiled_ms": profiled_us / 1e3,
+        "device_ms": device_us / 1e3, "launches": sum(r[1] for r in rows), "rows": rows,
+    }
+
+
+def _profile(label: str, fn, reps: int, top: int = 12) -> None:
+    p = device_profile(fn, reps)
+    rows, device_us = p["rows"], p["device_ms"] * 1e3
     print(
-        f"{label}: {wall_us / 1e3:.3f} ms/step wall ({profiled_us / 1e3:.3f} "
-        f"under the profiler), {device_us / 1e3:.3f} ms device in {launches} "
-        f"kernels and copies, busy share {device_us / wall_us:.1%} ({reps} steps each)"
+        f"{label}: {p['wall_ms']:.3f} ms/step wall ({p['profiled_ms']:.3f} "
+        f"under the profiler), {p['device_ms']:.3f} ms device in {p['launches']} "
+        f"kernels and copies, busy share {p['device_ms'] / p['wall_ms']:.1%} ({reps} steps each)"
     )
     for group, keys in GROUPS.items():
         us = sum(r[0] for r in rows if any(k in r[2] for k in keys))
@@ -136,14 +152,15 @@ def _profile_slam(nets: Networks) -> None:
     H, W = 480, 640
     # A fast sweep (0.02 m, 0.004 rad a step).
     frames, K, _, _ = synthetic_multidepth_sequence(
-        26, H, W, seed=100, step_translation=0.02, step_rotation=0.004
+        64, H, W, seed=100, step_translation=0.02, step_rotation=0.004
     )
     frames = (frames * 255).round().astype(np.uint8)
+    sweep, rest = frames[:26], frames[26:]
     vo = MonoVO(K, networks=nets)
-    for frame in frames[:4]:
+    for frame in sweep[:4]:
         vo.process_frame(frame)
     size = "480x640 uint8, bf16 networks, num_kf=7, max_points=256"
-    queue = iter(frames[4:])
+    queue = iter(sweep[4:])
 
     def keyframe():
         n = vo.n_keyframes
@@ -169,11 +186,24 @@ def _profile_slam(nets: Networks) -> None:
 
     def non_keyframe():
         n = vo.n_keyframes
-        vo.process_frame(frames[-1], oracle_rel=still)
+        vo.process_frame(sweep[-1], oracle_rel=still)
         if vo.n_keyframes != n:
             raise RuntimeError("a static frame became a keyframe")
 
     _profile(f"SLAM non-keyframe {size}", non_keyframe, reps=20)
+
+    # The rest of the sweep as keyframes, then global BA over all of them.
+    vo.klt.min_tracks = vo.klt.P + 1
+    for frame in rest:
+        vo.process_frame(frame)
+    built = vo.mp.build_global_problem(K)
+    if built is None:
+        raise RuntimeError("the keyframe history shares no track")
+    problem, kfs, points = built
+    F, P = problem.poses.shape[0], problem.depths.shape[0]
+    _profile(f"global BA solve, {len(kfs)} keyframes (F bucket {F}), {len(points)} tracks "
+             f"(P bucket {P}), uint8 stack, levels (2, 1) x 10 iterations",
+             lambda: vo.mp.solve_global(problem, len(kfs)), reps=5)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""The SLAM loop: networks, KLT frontend, keyframe map and windowed BA."""
+"""The SLAM loop: networks, KLT frontend, keyframe map, windowed and global BA."""
 
 from deep_visual_slam_torch.slam.frontend import Frame, Point
 from deep_visual_slam_torch.slam.klt_frontend import KLTFrontend

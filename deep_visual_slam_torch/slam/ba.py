@@ -20,6 +20,12 @@ default).
 State conventions: poses [F, 4, 4] ``T_cw``; the pose update is
 left-multiplicative ``T <- exp(xi) T`` with ``xi = [rho, phi]``, the depth
 update additive; the first pose is held fixed.
+
+The single-edge forms (``edge_residual``, ``edge_residual_grad``,
+``edge_jacobian``, ``bilinear_sample``, ``bilinear_sample_stack_grad``)
+differentiate through the sampler with ``torch.func.jacfwd``: they are the
+tests' oracle for the closed-form ``edges_jacobian``, and no solve calls
+them.
 """
 
 from __future__ import annotations
@@ -98,6 +104,136 @@ def bilinear_sample_stack(
     top = v00 * (1 - wx) + v01 * wx
     bot = v10 * (1 - wx) + v11 * wx
     return top * (1 - wy) + bot * wy
+
+
+def bilinear_sample(image: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Sample one [H, W, C] image at a continuous (x, y) ``uv`` [2], clamped
+    to the border: [C]."""
+    zero = torch.zeros(1, dtype=torch.long, device=uv.device)
+    return bilinear_sample_stack(image[None], zero, uv[None])[0]
+
+
+def bilinear_sample_stack_grad(
+    images: torch.Tensor, frame_idx: torch.Tensor, uv: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Value and spatial gradient of the bilinear interpolant of frame
+    ``frame_idx`` (a scalar) at one (x, y) ``uv`` [2]: (I [C], dI/d(x,y)
+    [C, 2]), the single-edge form of :func:`bilinear_sample_many_grad`."""
+    val, grad = bilinear_sample_many_grad(images, frame_idx.reshape(1), uv[None])
+    return val[0], grad[0]
+
+
+def _unproject(K: torch.Tensor, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """Host pixel ``uv`` [2] at ``depth`` -> the point in the host camera [3]."""
+    x = (uv[0] - K[0, 2]) / K[0, 0] * depth
+    y = (uv[1] - K[1, 2]) / K[1, 1] * depth
+    return torch.stack([x, y, depth])
+
+
+def _project(K: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    z = torch.clamp(X[2], min=1e-6)
+    return torch.stack([X[0] / z * K[0, 0] + K[0, 2], X[1] / z * K[1, 1] + K[1, 2]])
+
+
+def _edge_geometry(xi_d, xi_h, dd, T_dest, T_host, depth, uv, K):
+    """Reprojection of one edge at the retraction ``exp(xi) T``: (uv_dest
+    [2], dest-camera z, perturbed depth). No image access."""
+    Td = se3_exp(xi_d) @ T_dest
+    Th = se3_exp(xi_h) @ T_host
+    d = depth + dd
+    T_rel = Td @ torch.linalg.inv(Th)
+    X_dest = T_rel[:3, :3] @ _unproject(K, uv, d) + T_rel[:3, 3]
+    return _project(K, X_dest), X_dest[2], d
+
+
+def _edge_in_bounds(uv_dest, z, d, H: int, W: int) -> torch.Tensor:
+    return (
+        (uv_dest[0] >= 1.0)
+        & (uv_dest[0] <= W - 2.0)
+        & (uv_dest[1] >= 1.0)
+        & (uv_dest[1] <= H - 2.0)
+        & (z > 1e-3)
+        & (d > 1e-3)
+    )
+
+
+def edge_residual(
+    xi_dest: torch.Tensor,  # [6] se(3) perturbation of the dest pose
+    xi_host: torch.Tensor,  # [6] se(3) perturbation of the host pose
+    d_depth: torch.Tensor,  # [] depth perturbation
+    T_dest: torch.Tensor,  # [4, 4] dest T_cw
+    T_host: torch.Tensor,  # [4, 4] host T_cw
+    depth: torch.Tensor,  # [] depth in the host frame
+    uv: torch.Tensor,  # [2] host pixel
+    host_i: torch.Tensor,  # [] host frame index into images
+    dest_i: torch.Tensor,  # [] dest frame index into images
+    images: torch.Tensor,  # [F, H, W, C]
+    K: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Photometric residual of one (point, dest frame) edge and its
+    validity, ``I_dest(proj(T_dest T_host^-1 unproj(uv, d))) - I_host(uv)``
+    at the retraction: differentiating it in (xi_dest, xi_host, d_depth) at
+    zero (``torch.func.jacfwd``) gives the Gauss-Newton Jacobians through
+    the image sampler. An edge out of bounds has residual 0."""
+    _, H, W, _ = images.shape
+    uv_dest, z, d = _edge_geometry(xi_dest, xi_host, d_depth, T_dest, T_host, depth, uv, K)
+    ok = _edge_in_bounds(uv_dest, z, d, H, W)
+    r = bilinear_sample_stack(images, dest_i.reshape(1), uv_dest[None])[0] - (
+        bilinear_sample_stack(images, host_i.reshape(1), uv[None])[0]
+    )
+    return torch.where(ok, r, 0.0), ok
+
+
+def edge_residual_grad(
+    T_dest: torch.Tensor,
+    T_host: torch.Tensor,
+    depth: torch.Tensor,
+    uv: torch.Tensor,
+    I_host: torch.Tensor,  # [C] host intensity at uv
+    dest_i: torch.Tensor,
+    images: torch.Tensor,
+    K: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Residual of one edge at the current estimate with the bilinear
+    image gradient at its reprojection: (r [C], in bounds [], gI [C, 2])."""
+    _, H, W, _ = images.shape
+    zeros6 = torch.zeros(6, device=uv.device)
+    uv_dest, z, d = _edge_geometry(
+        zeros6, zeros6, torch.zeros((), device=uv.device), T_dest, T_host, depth, uv, K
+    )
+    ok = _edge_in_bounds(uv_dest, z, d, H, W)
+    I_dest, gI = bilinear_sample_stack_grad(images, dest_i, uv_dest)
+    return torch.where(ok, I_dest - I_host, 0.0), ok, gI
+
+
+def edge_jacobian(
+    T_dest: torch.Tensor,
+    T_host: torch.Tensor,
+    depth: torch.Tensor,
+    uv: torch.Tensor,
+    gI: torch.Tensor,  # [C, 2] image gradient at the current reprojection
+    images: torch.Tensor,  # for H and W only
+    K: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Jacobian of one edge with no image access: ``torch.func.jacfwd`` of
+    the reprojection geometry chained with the carried image gradient
+    ``gI``. Returns (J_dest [C, 6], J_host [C, 6], J_depth [C]), zero out of
+    bounds."""
+    _, H, W, _ = images.shape
+    zeros6 = torch.zeros(6, device=uv.device)
+    zero = torch.zeros((), device=uv.device)
+
+    def f_uv(xi_d, xi_h, dd):
+        return _edge_geometry(xi_d, xi_h, dd, T_dest, T_host, depth, uv, K)[0]
+
+    uv_dest, z, d = _edge_geometry(zeros6, zeros6, zero, T_dest, T_host, depth, uv, K)
+    ok = _edge_in_bounds(uv_dest, z, d, H, W)
+    Ju_d, Ju_h, Ju_z = torch.func.jacfwd(f_uv, argnums=(0, 1, 2))(zeros6, zeros6, zero)
+    return (
+        torch.where(ok, gI @ Ju_d, 0.0),
+        torch.where(ok, gI @ Ju_h, 0.0),
+        torch.where(ok, gI @ Ju_z, 0.0),
+    )
 
 
 def _skew(v: torch.Tensor) -> torch.Tensor:
@@ -242,6 +378,24 @@ def se3_adjoint(T: torch.Tensor) -> torch.Tensor:
 def huber_weight(r_norm: torch.Tensor, delta: float) -> torch.Tensor:
     """IRLS weight of the Huber kernel: 1 inside delta, delta/|r| outside."""
     return torch.where(r_norm <= delta, 1.0, delta / torch.clamp(r_norm, min=1e-12))
+
+
+def lm_accept(chi2, current, candidate, prior_new, cand_poses, cand_depths) -> torch.Tensor:
+    """The LM acceptance test, a 0-d bool on the device: the candidate's
+    total energy below ``chi2``, with an edge that leaves validity keeping
+    its previous cost in the comparison (so LM cannot lower chi2 by pushing
+    points off the image), and only if it is finite. ``current`` and
+    ``candidate`` are (r [E, C], w [E], ok [E]) of each state."""
+    (r, w, ok), (r2, w2, ok2) = current, candidate
+    c_old = w * torch.sum(r * r, dim=-1)
+    c_new = w2 * torch.sum(r2 * r2, dim=-1)
+    chi2_cmp = torch.sum(torch.where(ok & ~ok2, c_old, c_new)) + prior_new
+    finite = (
+        torch.isfinite(chi2_cmp)
+        & torch.all(torch.isfinite(cand_poses))
+        & torch.all(torch.isfinite(cand_depths))
+    )
+    return torch.where(finite, chi2_cmp, float("inf")) < chi2
 
 
 def photometric_ba(
@@ -464,19 +618,8 @@ def photometric_ba(
 
         r2, w2, chi2_new, geom2 = evaluate(cand_poses, cand_depths, cand_ab)
         _, _, prior_new = prior_eval(cand_poses, cand_ab)
-        # An edge that leaves validity keeps its previous cost in the
-        # comparison, so LM cannot lower chi2 by pushing points off the image.
-        c_old = w * torch.sum(r * r, dim=-1)
-        c_new = w2 * torch.sum(r2 * r2, dim=-1)
-        escaped = geom.ok & ~geom2.ok
-        chi2_cmp = torch.sum(torch.where(escaped, c_old, c_new)) + prior_new
-        finite = (
-            torch.isfinite(chi2_cmp)
-            & torch.all(torch.isfinite(cand_poses))
-            & torch.all(torch.isfinite(cand_depths))
-        )
-        chi2_cmp = torch.where(finite, chi2_cmp, float("inf"))
-        accept = chi2_cmp < chi2
+        accept = lm_accept(chi2, (r, w, geom.ok), (r2, w2, geom2.ok), prior_new,
+                           cand_poses, cand_depths)
         accepted.append(accept)
 
         poses = torch.where(accept, cand_poses, poses)

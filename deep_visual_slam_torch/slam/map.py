@@ -1,4 +1,4 @@
-"""Keyframe map and the windowed BA behind it, on the KLT path (port of
+"""Keyframe map and the BA behind it, on the KLT path (port of
 ``slam/map.py:Map``).
 
 The map gathers a fixed-shape ``BAProblem`` (``num_kf`` keyframe slots x
@@ -8,9 +8,14 @@ solve is pipelined: ``optimize`` queues it and returns; ``flush_ba``
 copies the result to the host frames and points when something reads
 them.
 
+``global_bundle_adjustment`` solves over the whole keyframe history,
+marginalized keyframes included, with the track-banded solver of
+``slam/global_ba.py``. Its shapes are padded to buckets (``_F_BUCKETS``,
+``_P_BUCKETS``), so a growing trajectory meets few distinct shapes.
+
 Not ported yet: the descriptor-matching keyframe policy
-(``check_add_key_frame``/``check_key_frame``, ORB path), the
-``keypoints()`` track walk (ORB path) and global BA.
+(``check_add_key_frame``/``check_key_frame``) and the ``keypoints()``
+track walk, both on the ORB path.
 """
 
 from __future__ import annotations
@@ -24,6 +29,10 @@ import torch
 from deep_visual_slam_torch import resolve_device
 from deep_visual_slam_torch.slam.ba import BAProblem, photometric_ba_pyramid
 from deep_visual_slam_torch.slam.frontend import Frame, Point
+from deep_visual_slam_torch.slam.global_ba import (
+    GlobalBAProblem,
+    photometric_ba_global_pyramid,
+)
 
 
 class Map:
@@ -136,11 +145,13 @@ class Map:
         for fid in [k for k in self._dev_images if k not in live]:
             del self._dev_images[fid]
 
-    def _gather_tracks_fast(self, frames: List[Frame], max_points: int):
+    def _gather_tracks_fast(self, frames: List[Frame], max_points: int, window: bool = True):
         """Track gather from the KLT frontend's slot -> Point-id snapshots
         (``Frame.slot_pt_id``). Returns ``(points, host_uv [n, 2], host_idx
         [n], depth [n], unc [n], obs [n, F_real])``, longest tracks first, or
-        None when a window frame has no snapshot (ORB frames)."""
+        None when a frame has no snapshot (ORB frames). ``window=False``
+        keeps the points that ``Point.valid`` retired from the sliding window
+        (their observations stay true history, for global BA)."""
         snaps = [getattr(f, "slot_pt_id", None) for f in frames]
         if any(s is None for s in snaps):
             return None
@@ -154,7 +165,10 @@ class Map:
         slot_arr = np.zeros(len(uids), np.int64)
         slot_arr[inv] = np.broadcast_to(np.arange(M.shape[1]), M.shape)
         n_obs = obs_full.sum(1)
-        valid = np.array([u >= 0 and self.points[u].valid for u in uids], bool)
+        if window:
+            valid = np.array([u >= 0 and self.points[u].valid for u in uids], bool)
+        else:
+            valid = uids >= 0
         keep = valid & (n_obs >= 2)
         if not keep.any():
             return [], None, None, None, None, None
@@ -296,4 +310,136 @@ class Map:
             for pt in old.pts.values():
                 pt.valid = False
         self._evict_device_images()
+        return True
+
+    # ------------------------------------------------------------ global BA
+    _F_BUCKETS = (8, 16, 32, 48, 64, 96, 128, 192, 256, 384, 512)
+    _P_BUCKETS = (256, 512, 1024, 2048, 4096)
+    # The JAX package's defaults: LM iterations over all levels, the
+    # track-length cap L of the banded solver, and the tracks kept.
+    _GLOBAL_ITERS = 21
+    _GLOBAL_OFFSETS = 8
+    _GLOBAL_POINTS = 2048
+
+    @staticmethod
+    def _bucket(n: int, buckets) -> int:
+        """The smallest bucket that holds ``n``, else ``n`` itself."""
+        for b in buckets:
+            if n <= b:
+                return b
+        return n
+
+    def _gather_global_tracks(self, kfs: List[Frame]):
+        """Track gather over the whole keyframe history, retired points
+        included, the ``_GLOBAL_POINTS`` longest kept. Observations more
+        than ``_GLOBAL_OFFSETS`` keyframes after a point's host are dropped
+        (the banded solver's track-length cap); a point left with none keeps
+        its slot, its edges masked.
+
+        Returns ``(points, host_uv [n, 2], host_idx [n], depth [n], weight
+        [n], obs_off [n, _GLOBAL_OFFSETS])``, longest tracks first, or None
+        when no track spans two keyframes."""
+        gathered = self._gather_tracks_fast(kfs, self._GLOBAL_POINTS, window=False)
+        if gathered is None:
+            raise NotImplementedError(
+                "keyframes without KLT slot snapshots: the ORB track walk of "
+                "global BA is not ported yet"
+            )
+        points, uv, host_f, depth, unc, obs = gathered
+        if not points:
+            return None
+        # Offset grid: observed at host + 1 + l, l in [0, max_offsets).
+        cols = host_f[:, None] + 1 + np.arange(self._GLOBAL_OFFSETS)[None, :]
+        obs_off = np.take_along_axis(obs, np.clip(cols, 0, len(kfs) - 1), axis=1)
+        obs_off &= cols < len(kfs)
+        weight = self.alpha**2 / (self.alpha**2 + np.sqrt(np.abs(unc)) ** 2)
+        return (
+            points, uv, host_f.astype(np.int64), np.maximum(0.01, depth),
+            weight.astype(np.float32), obs_off,
+        )
+
+    def build_global_problem(
+        self, intrinsic: np.ndarray
+    ) -> Optional[Tuple[GlobalBAProblem, List[Frame], List[Point]]]:
+        """The bucketed ``GlobalBAProblem`` over every keyframe (``f.anchor
+        is f``), with the keyframes and points it covers; None with fewer
+        than two keyframes or no shared track. The images go up as one
+        stack, uint8 when every keyframe is uint8 with brightness (1, 0)."""
+        self.flush_ba()
+        kfs = [f for f in self.frames if f.anchor is f]
+        F_real = len(kfs)
+        if F_real < 2:
+            return None
+        gathered = self._gather_global_tracks(kfs)
+        if gathered is None:
+            return None
+        points, uv, host_idx, depth0, weight, obs_off = gathered
+        n = len(points)
+        F = self._bucket(F_real, self._F_BUCKETS)
+        P = self._bucket(n, self._P_BUCKETS)
+        H, W = kfs[0].image.shape[:2]
+
+        if all(f.image.dtype == np.uint8 and f.a == 1.0 and f.b == 0.0 for f in kfs):
+            stack = np.zeros((F, H, W, 3), np.uint8)
+            for i, f in enumerate(kfs):
+                stack[i] = f.image
+        else:
+            stack = np.zeros((F, H, W, 3), np.float32)
+            for i, f in enumerate(kfs):
+                img = np.asarray(f.image, np.float32)
+                if f.image.dtype == np.uint8:
+                    img = img / 255.0
+                if img.ndim == 2:
+                    img = np.repeat(img[..., None], 3, axis=-1)
+                stack[i] = f.a * img + f.b
+
+        host_uv = np.zeros((P, 2), np.float32)
+        host_i = np.zeros(P, np.int64)
+        depths = np.full(P, 1.0, np.float32)
+        w_arr = np.zeros(P, np.float32)
+        obs = np.zeros((P, self._GLOBAL_OFFSETS), bool)
+        host_uv[:n] = uv
+        host_i[:n] = host_idx
+        depths[:n] = depth0
+        w_arr[:n] = weight
+        obs[:n] = obs_off
+        poses = np.stack([f.pose for f in kfs] + [np.eye(4)] * (F - F_real)).astype(np.float32)
+
+        def dev(a):
+            return torch.from_numpy(a).to(self.device)
+
+        problem = GlobalBAProblem(
+            images=dev(stack),
+            K=dev(np.asarray(intrinsic, np.float32)),
+            poses=dev(poses),
+            depths=dev(depths),
+            host_uv=dev(host_uv),
+            host_idx=dev(host_i),
+            obs_off=dev(obs),
+            weight=dev(w_arr),
+        )
+        return problem, kfs, points
+
+    def solve_global(self, problem: GlobalBAProblem, num_real: int):
+        """The global solve on a built problem: ``_GLOBAL_ITERS //
+        len(ba_levels)`` LM iterations at each of the ``ba_levels``, queued
+        on the device with no host synchronisation."""
+        levels = self.ba_levels
+        it = max(self._GLOBAL_ITERS // len(levels), 1)
+        return photometric_ba_global_pyramid(
+            problem, num_real, levels=levels, iters_per_level=(it,) * len(levels),
+            depth_damping=self.depth_damping, prior_weight=self.pose_prior_weight,
+            huber_delta=self.huber_delta,
+        )
+
+    def global_bundle_adjustment(self, intrinsic: np.ndarray) -> bool:
+        """Photometric BA over the whole keyframe history, marginalized
+        keyframes included, written back to the keyframes and the points'
+        host depths. False when there is nothing to solve."""
+        built = self.build_global_problem(intrinsic)
+        if built is None:
+            return False
+        problem, kfs, points = built
+        poses, depths, _ = self.solve_global(problem, len(kfs))
+        self._write_back(kfs, points, poses[: len(kfs)].cpu().numpy(), depths.cpu().numpy())
         return True

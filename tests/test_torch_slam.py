@@ -13,6 +13,7 @@ amplify (tolerances beside each check).
 """
 
 import functools
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,14 +22,17 @@ import torch
 
 from deep_visual_slam_tpu.data import synthetic as jsynthetic
 from deep_visual_slam_tpu.eval import trajectory as jtrajectory
+from deep_visual_slam_tpu.eval.traj_eval import EvalTrajectory as JaxEvalTrajectory
 from deep_visual_slam_tpu.slam import MonoVO as JaxMonoVO
 from deep_visual_slam_tpu.slam import Networks as JaxNetworks
 
+from deep_visual_slam_torch import ba_ablation
 from deep_visual_slam_torch.data import synthetic
-from deep_visual_slam_torch.eval import trajectory
+from deep_visual_slam_torch.eval import EvalTrajectory, trajectory
 from deep_visual_slam_torch.slam import Frame, KLTFrontend, Map, MonoVO, Networks
 from deep_visual_slam_torch.utils.weights import depthnet_from_jax, posenet_from_jax
 
+from scripts import ba_ablation as jax_ba_ablation
 from scripts.ba_ablation import make_oracle_inits
 from test_torch_models import jax_variables
 
@@ -160,6 +164,122 @@ def test_monovo_lazy_depth_fetch():
         assert d is None or (d.shape == (H, W) and np.isfinite(d).all())
     assert all(f.depth is not None for f in vo.mp.keyframes)
     np.testing.assert_array_equal(trajs[0], trajs[1])
+
+
+def test_global_ba_over_marginalized_keyframes_matches_jax():
+    """14 frames of a faster sweep (0.03 m, 0.006 rad a step) from an
+    oracle initialization, ``num_kf=4``: the keyframe history outgrows the
+    window, and global BA on it (levels (2, 1), 21 iterations) moves
+    keyframes already marginalized out of the window while the first stays
+    fixed. The port's keyframe poses after it, and the trajectory riding
+    them, are within 1e-5 of JAX's (they move by ~1e-3)."""
+    frames, K, gt, depths = jsynthetic.synthetic_multidepth_sequence(
+        14, H, W, seed=11, step_translation=0.03, step_rotation=0.006
+    )
+    oracle = make_oracle_inits(gt, depths, 11, 0.3, 0.005, 0.0)
+    vo_j, vo = _jax_monovo(K), _monovo(K)
+    _run(vo_j, frames, oracle)
+    _, kf_ids = _run(vo, frames, oracle)
+    kfs = [f for f in vo.mp.frames if f.anchor is f]
+    n_marginalized = len(kfs) - len(vo.mp.keyframes)
+    assert n_marginalized >= 2 and len(kfs) == len(kf_ids)
+    before = np.stack([f.pose for f in kfs])
+    assert vo_j.mp.global_bundle_adjustment(K, verbose=False)
+    assert vo.mp.global_bundle_adjustment(K)
+    after = np.stack([f.pose for f in kfs])
+    after_j = np.stack([f.pose for f in vo_j.mp.frames if f.anchor is f])
+    moved = np.abs(after - before).max(axis=(1, 2))
+    assert moved[0] == 0 and moved[1:n_marginalized].max() > 1e-4, moved
+    np.testing.assert_allclose(after, after_j, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(vo.trajectory(), vo_j.trajectory(), rtol=0, atol=1e-5)
+
+
+def _walk(seed, n=40):
+    """A random camera-to-world walk [n, 4, 4] with rotations."""
+    rng = np.random.default_rng(seed)
+    rels = [synthetic._perturb_rel(np.eye(4), rng.normal(0, 0.05, 3), rng.normal(0, 0.3, 3))
+            for _ in range(n - 1)]
+    return trajectory.accumulate_trajectory(rels)
+
+
+@pytest.mark.parametrize("metric", [
+    "accumulate_trajectory", "rpe", "kitti_segment_errors", "scale_correction_factor",
+    "EvalTrajectory.metrics", "ba_ablation.evaluate",
+])
+def test_trajectory_metrics_match_jax(metric):
+    """The host-numpy metrics on a 40-pose random walk and a noisy copy of
+    it (float64 on both sides): within 1e-12, the ablation's rounded
+    numbers equal."""
+    gt = _walk(1)
+    rng = np.random.default_rng(2)
+    pred = np.stack([synthetic._perturb_rel(T, rng.normal(0, 0.01, 3), rng.normal(0, 0.02, 3))
+                     for T in gt])
+    rel_gt = [np.linalg.inv(a) @ b for a, b in zip(gt[:-1], gt[1:])]
+    rel_pred = [np.linalg.inv(a) @ b for a, b in zip(pred[:-1], pred[1:])]
+    if metric == "accumulate_trajectory":
+        got = trajectory.accumulate_trajectory(rel_pred, T0=pred[0])
+        want = jtrajectory.accumulate_trajectory(rel_pred, T0=pred[0])
+    elif metric == "rpe":
+        got, want = trajectory.rpe(pred, gt, delta=3), jtrajectory.rpe(pred, gt, delta=3)
+    elif metric == "kitti_segment_errors":
+        kw = dict(lengths=(1.0, 2.0, 4.0), step_size=5)
+        got = trajectory.kitti_segment_errors(pred, gt, **kw)
+        want = jtrajectory.kitti_segment_errors(pred, gt, **kw)
+        assert len(want[0]) > 10
+    elif metric == "scale_correction_factor":
+        scaled = [T.copy() for T in rel_pred]
+        for T in scaled:
+            T[:3, 3] *= 0.4
+        got = trajectory.scale_correction_factor(rel_gt, scaled)
+        want = jtrajectory.scale_correction_factor(rel_gt, scaled)
+        assert 2.0 < want < 3.0
+    elif metric == "EvalTrajectory.metrics":
+        ev, ev_j = EvalTrajectory(), JaxEvalTrajectory()
+        for e in (ev, ev_j):
+            for i in range(0, len(rel_pred), 8):
+                e.update_state(np.stack(rel_pred[i:i + 8]), np.stack(rel_gt[i:i + 8]))
+        got, want = ev.metrics(), ev_j.metrics()
+        assert "ate_rmse" in want and "rpe_rot_mean_deg" in want
+        ev.reset()
+        assert ev.metrics() == {} and ev.trajectories()[1] is None
+    else:
+        kf_ids = list(range(0, 40, 3))
+        gt_cw = np.linalg.inv(gt)
+        got = ba_ablation.evaluate(pred, gt_cw, kf_ids)
+        want = jax_ba_ablation.evaluate(pred, gt_cw, kf_ids)
+        assert got == want and "kf_ate_rmse" in want
+    _assert_close(got, want)
+
+
+def _assert_close(got, want):
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            _assert_close(got[k], want[k])
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            _assert_close(a, b)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+def test_ba_ablation_entry_point(tmp_path):
+    """``python3 -m deep_visual_slam_torch.ba_ablation`` at 48x64 on the CPU
+    writes the three configurations' numbers; ``--vo_ckpt`` and
+    ``--frontend orb`` name what is not ported."""
+    out = tmp_path / "ablation.json"
+    ba_ablation.main(["--init", "oracle", "--frames", "6", "--size", "64", "96", "--seeds", "100",
+                      "--device", "cpu", "--out_json", str(out)])
+    record = json.loads(out.read_text())
+    scene = record["per_scene"]["100"]
+    assert sorted(scene) == ["no_ba", "windowed_ba", "windowed_plus_global_ba"]
+    for m in scene.values():
+        assert m["keyframes"] >= 3 and np.isfinite(m["kf_ate_rmse"])
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        ba_ablation.main(["--vo_ckpt", "weights/vo", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ORB"):
+        ba_ablation.main(["--frontend", "orb", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("align", [True, False])
