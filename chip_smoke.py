@@ -52,6 +52,24 @@ the run with a non-zero exit code and no result line:
    moves JAX's. (c) One global solve at the 60-keyframe F bucket (64), at
    480x640: wall ms (median of 5), device ms, launches and busy share under
    ``torch.profiler``, no synchronising call, device memory high-water.
+9. The VO trainer (``training/vo_trainer.py``) at the full width of
+   ``configs/vo_fixture_640.yaml`` (ResNet-18 networks, 480x640, B=8, bf16,
+   device jitter, uint8 batches), on phase 7b's renders packed as scenes
+   (seed 100's 60 frames to train, seed 101's to validate) with the
+   synthetic stereo stream interleaved. (a) One epoch (6 mono steps) and
+   one validation through ``Trainer.train``: K1 launches per mono, stereo
+   and validation step (10 + 8, 5 + 4 and 10), finite losses and
+   ``EvalTrajectory`` metrics, checkpoint save ms and bytes, device memory
+   high-water. (b) A second run interrupted in its 4th step and a new
+   ``Trainer`` on its directory: it resumes at the mid-epoch checkpoint
+   (epoch, step in the epoch, update count, learning rate) and runs the
+   remaining steps, whose losses must agree with (a)'s within
+   ``RESUME_RTOL`` (the card's step is not deterministic). (c) ``Networks.from_checkpoint`` of (a)'s directory
+   against (a)'s models on one frame, and ``ba_ablation --vo_ckpt`` over 30
+   frames of seed 100. (d) ms per trainer iteration with the loader (an
+   epoch of the resumed trainer, CUDA events at each step, no host
+   synchronisation), frames/s, and the same step fed from a batch held on
+   the card, timed the same way.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
@@ -60,6 +78,7 @@ last is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -207,6 +226,25 @@ BA_ABLATION_REFERENCE = {
 # BA's moves of 0.12 and 0.76 mm there (seeds 100 and 101). Over 60 frames
 # the loop is chaotic (phase 7b): only the sign of global BA's move.
 GLOBAL_30_ATOL = 1e-5
+# Phase 9b: a resumed trainer's losses against the uninterrupted run's.
+# ``torch.use_deterministic_algorithms(True)`` refuses the train step on the
+# card (grid_sample's backward has no deterministic CUDA form; the reflection
+# padding's backward also adds with atomics), so two runs of the same steps
+# differ in the last bits of their gradients, and Adam's first updates,
+# ~lr * sign(g), carry a flipped sign of a near-zero gradient into the
+# weights. Measured on an H100 (NVIDIA H100 80GB HBM3, 700 W), in two runs:
+# the two trainers' first 3 mono and 2 stereo steps 6.16e-3 and 4.39e-3
+# apart (relative, per loss), the resumed steps 9.23e-3 and 1.53e-2 from the
+# uninterrupted run's. A resume that gets it wrong moves them far more (on
+# the CPU at 96x128 in bf16, where a resumed run equals the uninterrupted
+# one exactly: a fresh generator state 1.5e-1, a restart of the epoch
+# 2.1e-1). The tolerance sits ~3x above the largest reading and ~3x below
+# those.
+RESUME_RTOL = 5e-2
+# Phase 9c: the networks read from the checkpoint against the trainer's own
+# models on the same frame, same device and dtype: the same weights through
+# the same kernels, so equal (depth rtol, pose atol; measured 0 and 0).
+READER_DEPTH_RTOL, READER_POSE_ATOL = 0.0, 0.0
 
 
 def check(ok: bool, what: str) -> None:
@@ -969,6 +1007,236 @@ def phase_global_ba(k1, kept, card):
     return launches
 
 
+def _instrument(trainer, k1, log, stop_at=None):
+    """Wrap ``trainer``'s steps: each call appends (kind, K1 forward and
+    backward launches in it, its losses left on the card, the learning rate
+    after it); each mono step first records a CUDA event (``log["marks"]``).
+    With ``stop_at`` the mono step of that number raises before it runs."""
+    mono, stereo, evaluate = trainer.train_step, trainer.stereo_step, trainer.eval_step
+
+    def wrap(kind, fn):
+        def call(*args):
+            if kind == "mono":
+                if stop_at is not None and sum(r[0] == "mono" for r in log["steps"]) + 1 == stop_at:
+                    raise KeyboardInterrupt("phase 9b: interrupted")
+                mark = torch.cuda.Event(enable_timing=True)
+                mark.record()
+                log["marks"].append(mark)
+            before = (k1.launches, k1.backward_launches)
+            out = fn(*args)
+            losses = out[1] if kind == "eval" else out
+            log["steps"].append((
+                kind, (k1.launches - before[0], k1.backward_launches - before[1]),
+                {k: v.detach().clone() for k, v in losses.items()},
+                trainer.state.optimizer.param_groups[0]["lr"],
+            ))
+            return out
+        return call
+
+    trainer.train_step = wrap("mono", mono)
+    trainer.eval_step = wrap("eval", evaluate)
+    if stereo is not None:
+        trainer.stereo_step = wrap("stereo", stereo)
+
+
+def _losses(log, kind):
+    return [{k: v.item() for k, v in r[2].items()} for r in log["steps"] if r[0] == kind]
+
+
+def _max_rel(a, b):
+    """The largest relative difference between two lists of loss dicts."""
+    return max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-12) for x, y in zip(a, b) for k in y)
+
+
+def phase_trainer(k1, kept, card):
+    from deep_visual_slam_torch import ba_ablation
+    from deep_visual_slam_torch.data.loader import device_prefetch
+    from deep_visual_slam_torch.data.packed import pack_scene
+    from deep_visual_slam_torch.ops import disp_to_depth, transformation_from_parameters
+    from deep_visual_slam_torch.slam import Networks
+    from deep_visual_slam_torch.training.vo_trainer import Trainer
+    from deep_visual_slam_torch.utils.config import load_config
+
+    print("phase 9: the VO trainer at configs/vo_fixture_640.yaml, its checkpoint, resume "
+          "and readers")
+    start_phase = time.perf_counter()
+    root = ROOT / "build" / "phase9"
+    shutil.rmtree(root, ignore_errors=True)
+    for fold, seed in (("train", 100), ("valid", 101)):
+        s = kept["seeds"][seed]
+        pack_scene(str(root / "packed" / fold / f"seed_{seed}"),
+                   (np.clip(s["frames"], 0, 1) * 255).astype(np.uint8), s["K"],
+                   poses=np.linalg.inv(np.asarray(s["gt"], np.float64)).astype(np.float32))
+
+    def config(run):
+        return load_config(ROOT / "configs" / "vo_fixture_640.yaml", overrides={
+            "Directory": {"data_dir": f"{root}/data/", "log_dir": f"{root}/{run}/tb",
+                          "weights": f"{root}/{run}/weights",
+                          "results": f"{root}/{run}/results"},
+            "Dataset": {"packed": {"mono": True, "root": str(root / "packed")},
+                        "synthetic": {"mono": False, "stereo": True, "length": 16}},
+            "Train": {"epoch": 1, "valid_freq": 1, "save_every_steps": 3},
+        })
+
+    # (a) One epoch and one validation, the counts set to 0 just before.
+    a = Trainer(config("a"))
+    t = a.config["Train"]
+    B, H, W = t["batch_size"], t["img_h"], t["img_w"]
+    check((a.steps_per_epoch, a.total_updates) == (6, 8),
+          f"6 mono and 2 stereo updates an epoch (got {a.steps_per_epoch}, {a.total_updates})")
+    log_a = {"steps": [], "marks": []}
+    _instrument(a, k1, log_a)
+    saves, metrics = [], {}
+    save, validate = a.ckpt.save, a.validate
+
+    def timed_save(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(*args, **kw)
+        saves.append(((time.perf_counter() - t0) * 1e3, Path(path).stat().st_size))
+        return path
+
+    a.ckpt.save = timed_save
+    a.validate = lambda epoch: metrics.update(validate(epoch)) or metrics
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k1.backward_launches = 0
+    t0 = time.perf_counter()
+    a.train()
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    launches = (k1.launches, k1.backward_launches)
+    peak = torch.cuda.max_memory_allocated()
+    kinds = [r[0] for r in log_a["steps"]]
+    check(kinds == ["mono", "stereo"] * 2 + ["mono"] * 4 + ["eval"] * 7,
+          f"6 mono steps, a stereo step after each of the first two, 7 validation steps: {kinds}")
+    per_kind = {kind: sorted({r[1] for r in log_a["steps"] if r[0] == kind})
+                for kind in ("mono", "stereo", "eval")}
+    check(per_kind == {"mono": [(10, 8)], "stereo": [(5, 4)], "eval": [(10, 0)]},
+          f"K1 launches per mono, stereo and validation step: {per_kind}")
+    check(launches == (6 * 10 + 2 * 5 + 7 * 10, 6 * 8 + 2 * 4), f"K1 launches {launches}")
+    for r in log_a["steps"]:
+        check(all(bool(torch.isfinite(v)) for v in r[2].values()), f"{r[0]} losses finite")
+    traj = {k: v for k, v in metrics.items() if k.startswith("valid/") and "loss" not in k}
+    check("valid/ate_rmse" in traj and all(np.isfinite(v) for v in traj.values()),
+          f"validation EvalTrajectory metrics finite: {traj}")
+    mono_a = _losses(log_a, "mono")
+    curve = " -> ".join("{:.5f}".format(m["loss"]) for m in mono_a)
+    print(
+        f"  (a) {card}: B={B} {H}x{W} {t['compute_dtype']}, device jitter, uint8 batches; "
+        f"train scene seed 100 (60 frames, 54 snippets), valid scene seed 101 (58), stereo "
+        f"stream of 16 pairs; one epoch and one validation in {wall_a:.1f} s (first step "
+        f"included); mono loss {curve}; K1 launches "
+        f"{launches[0]} forward, {launches[1]} backward = 10 + 8 per mono step (6), 5 + 4 per "
+        f"stereo step (2), 10 per validation step (7); validation loss "
+        f"{metrics['valid/loss']:.5f}, EvalTrajectory "
+        + ", ".join(f"{k[6:]} {v:.6f}" for k, v in sorted(traj.items()))
+        + f"; checkpoint saves {', '.join(f'{ms:.1f} ms' for ms, _ in saves)} "
+        f"(synchronised), {saves[0][1] / 2**20:.1f} MiB each; device memory high-water "
+        f"{peak / 2**30:.2f} GiB"
+    )
+
+    # (b) Interrupted in the 4th mono step, then resumed by a new Trainer.
+    b = Trainer(config("b"))
+    log_b = {"steps": [], "marks": []}
+    _instrument(b, k1, log_b, stop_at=4)
+    try:
+        b.train()
+        check(False, "the second run was interrupted")
+    except KeyboardInterrupt:
+        pass
+    c = Trainer(config("b"))
+    lr_a = [r[3] for r in log_a["steps"] if r[0] == "mono"]
+    resumed = (c.start_epoch, c.resume_step_in_epoch, c.state.step)
+    check(resumed == (1, 3, 5), f"resumed at epoch 1, step 3 in it, update 5 (got {resumed})")
+    check(c.state.schedule(c.state.step) == lr_a[3],
+          "the resumed learning rate is the uninterrupted run's at its 4th step")
+    log_c = {"steps": [], "marks": []}
+    _instrument(c, k1, log_c)
+    c.train()
+    kinds = [r[0] for r in log_c["steps"]]
+    check(kinds == ["mono"] * 3 + ["eval"] * 7, f"the resumed run's steps: {kinds}")
+    spread = _max_rel(_losses(log_b, "mono") + _losses(log_b, "stereo"),
+                      mono_a[:3] + _losses(log_a, "stereo"))
+    resume_err = _max_rel(_losses(log_c, "mono"), mono_a[3:])
+    print(
+        f"  (b) interrupted in its 4th mono step; a new Trainer resumed at epoch 1, step 3 "
+        f"in it, update {resumed[2]} (lr {lr_a[3]:.6e}), ran the last 3 mono steps: "
+        f"losses within {resume_err:.2e} of (a)'s relative (tolerance {RESUME_RTOL:.0e}); the "
+        f"two runs' first 3 mono and 2 stereo steps differ by {spread:.2e}"
+    )
+    check(resume_err <= RESUME_RTOL, f"resumed losses within {RESUME_RTOL} of the "
+          "uninterrupted run's")
+    check(c.state.step == a.state.step == 8, "both runs ended at update 8")
+
+    # (c) The readers: Networks.from_checkpoint and ba_ablation --vo_ckpt.
+    ckpt_dir = a.ckpt.directory
+    nets = Networks.from_checkpoint(ckpt_dir)
+    check(nets.predict_uncertainty is False, "no uncertainty head in the checkpoint")
+    frames = kept["seeds"][100]["frames"]
+    prev, cur = ((frames[i] * 255).round().astype(np.uint8) for i in (0, 1))
+    depth, T = nets.step(prev, cur)
+    a.state.depth_model.eval()
+    a.state.pose_model.eval()
+    with torch.inference_mode(), torch.autocast(nets.device.type, torch.bfloat16):
+        img = [torch.from_numpy(f).to(nets.device)[None].float() / 255.0 for f in (prev, cur)]
+        want_depth = disp_to_depth(a.state.depth_model(img[1])[("disp", 0)], 0.1, 10.0)[1]
+        aa, tt = a.state.pose_model(torch.cat(img, dim=-1))
+    want_T = transformation_from_parameters(aa[:, 0, 0], tt[:, 0, 0])
+    want_depth = want_depth[0, ..., 0].float().cpu().numpy()
+    want_T = want_T[0].cpu().numpy().astype(np.float64)
+    depth_err = float(np.max(np.abs(depth - want_depth) / want_depth))
+    pose_err = float(np.abs(T - want_T).max())
+    check(depth_err <= READER_DEPTH_RTOL and pose_err <= READER_POSE_ATOL,
+          f"Networks.from_checkpoint against the trainer's models: depth {depth_err:.2e}, "
+          f"pose {pose_err:.2e}")
+    out_json = root / "ablation.json"
+    t0 = time.perf_counter()
+    ba_ablation.main(["--vo_ckpt", ckpt_dir, "--init", "net", "--frames", "30", "--seeds",
+                      "100", "--size", str(H), str(W), "--out_json", str(out_json)])
+    record = json.loads(out_json.read_text())
+    scene = record["per_scene"]["100"]
+    check(record["provenance"]["weights"] == ckpt_dir and record["provenance"]["device"] != "cpu",
+          "the ablation ran on the card with the checkpoint's networks")
+    check(all(np.isfinite(m["ate_rmse"]) and np.isfinite(m["kf_ate_rmse"])
+              for m in scene.values()), "ablation ATEs finite")
+    print(
+        f"  (c) Networks.from_checkpoint (update {c.state.step}) against the trainer's models "
+        f"on seed 100's frames 0-1, bf16: depth within {depth_err:.2e} relative, pose within "
+        f"{pose_err:.2e} (tolerance {READER_DEPTH_RTOL}, {READER_POSE_ATOL}); ba_ablation "
+        f"--vo_ckpt --init net, 30 frames of seed 100, in {time.perf_counter() - t0:.1f} s: "
+        + "; ".join(f"{k} ATE {m['ate_rmse']:.6f} keyframe ATE {m['kf_ate_rmse']:.6f} "
+                    f"({m['keyframes']} keyframes)" for k, m in scene.items())
+    )
+
+    # (d) The trainer's loop with the loader, timed on the card: an epoch of
+    # the resumed trainer, a CUDA event at each mono step and one at its end.
+    c.save_every_steps = 0
+    log_d = {"steps": [], "marks": []}
+    _instrument(c, k1, log_d)
+    c.train_epoch(2)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    marks = log_d["marks"] + [end]
+    iters = [m0.elapsed_time(m1) for m0, m1 in zip(marks, marks[1:])]
+    mono_only = iters[2:]  # the first two iterations carry a stereo step
+    iter_ms = statistics.median(mono_only)
+    batch = next(iter(device_prefetch(c.data_loader.train_loader)))
+    resident_ms = cuda_ms(lambda: c.train_step(c.state, batch, c.generator), reps=3)
+    print(
+        f"  (d) {card}: trainer iterations with the loader (CUDA events, one epoch of the "
+        f"resumed trainer): {', '.join(f'{x:.2f}' for x in iters)} ms (the first two with "
+        f"their stereo step); mono-only median {iter_ms:.2f} ms = {1e3 * B / iter_ms:.1f} "
+        f"frames/s; the same step on a batch held on the card {resident_ms:.2f} ms (3 back "
+        f"to back between CUDA events, median of 5): the loader's share "
+        f"{max(iter_ms - resident_ms, 0.0) / iter_ms:.1%}"
+    )
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase {time.perf_counter() - start_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "deep_visual_slam_torch" / "csrc" / "reprojection.cu").is_file():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -994,17 +1262,18 @@ def main() -> int:
     )
     (slam_fwd, slam_bwd), kept = phase_slam(reprojection_loss)
     global_fwd, global_bwd = phase_global_ba(reprojection_loss, kept, card)
+    trainer_fwd, trainer_bwd = phase_trainer(reprojection_loss, kept, card)
     # Each main path ran with the counts set to 0 just before it.
-    k1_row["launches"] = eval_launches + train_fwd + stereo_fwd + slam_fwd + global_fwd
     k1_row["launches_by_path"] = {
         "eval": eval_launches, "train": train_fwd, "stereo": stereo_fwd, "slam": slam_fwd,
-        "global_ba": global_fwd,
+        "global_ba": global_fwd, "trainer": trainer_fwd,
     }
-    bwd_row["launches"] = train_bwd + stereo_bwd + slam_bwd + global_bwd
     bwd_row["launches_by_path"] = {
         "eval": 0, "train": train_bwd, "stereo": stereo_bwd, "slam": slam_bwd,
-        "global_ba": global_bwd,
+        "global_ba": global_bwd, "trainer": trainer_bwd,
     }
+    for row in (k1_row, bwd_row):
+        row["launches"] = sum(row["launches_by_path"].values())
     for row in (k1_row, bwd_row):
         check(row["launches"] > 0, f"{row['name']} launched on the main path")
     print(f"total {time.perf_counter() - start:.1f} s")

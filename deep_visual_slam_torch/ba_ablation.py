@@ -19,9 +19,10 @@ poses global BA writes back; the numbers are rounded as the JAX script
 rounds them. The JSON goes to ``results/ba_ablation_torch.json`` unless
 ``--out_json`` says otherwise.
 
-The networks are random (``Networks(seed=0)``), on the card unless
-``--device cpu``. Not ported: ``--vo_ckpt`` (the trainer's checkpoint
-format) and ``--frontend orb`` (cv2); both raise ``NotImplementedError``.
+The networks are random (``Networks(seed=0)``) or, with ``--vo_ckpt``, those
+of the newest checkpoint of a VO trainer run (``Networks.from_checkpoint``
+of ``<weights>/<experiment_name>``), on the card unless ``--device cpu``.
+Not ported: ``--frontend orb`` (cv2), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,11 +45,10 @@ from deep_visual_slam_torch.slam import MonoVO, Networks
 
 
 def load_networks(vo_ckpt, seed: int = 0, device=None):
-    """(networks, provenance): random networks from ``seed``."""
+    """(networks, provenance): those of the checkpoint directory
+    ``vo_ckpt``, or random networks from ``seed``."""
     if vo_ckpt:
-        raise NotImplementedError(
-            "--vo_ckpt: reading the VO trainer's checkpoint is not ported yet"
-        )
+        return Networks.from_checkpoint(vo_ckpt, device=device), vo_ckpt
     return Networks(seed=seed, device=device), "random-init"
 
 
@@ -106,7 +106,7 @@ def main(argv=None) -> None:
     ap.add_argument("--size", type=int, nargs=2, default=(480, 640), metavar=("H", "W"))
     ap.add_argument("--seeds", type=int, nargs="+", default=[100, 101, 102])
     ap.add_argument("--vo_ckpt", default=None,
-                    help="a VO trainer checkpoint (not ported: raises)")
+                    help="a VO trainer checkpoint directory (default: random networks)")
     ap.add_argument("--out_json", default="results/ba_ablation_torch.json")
     ap.add_argument("--scene", choices=("multidepth", "plane"), default="multidepth",
                     help="multidepth (default): piecewise-planar ray-cast scenes, "
@@ -135,8 +135,8 @@ def main(argv=None) -> None:
     ap.add_argument("--estimate_affine", action="store_true",
                     help="estimate per-frame brightness (a, b) inside BA")
     ap.add_argument("--distractor", choices=("none", "flicker", "moving"), default="none",
-                    help="a photometric-violation slab in every scene (multidepth "
-                    "only in the port); adds the _unc rows")
+                    help="a photometric-violation region in every scene (--scene "
+                    "plane: flicker only); adds the _unc rows")
     ap.add_argument("--oracle_unc_value", type=float, default=24.0,
                     help="uncertainty inside the distractor mask (0 outside)")
     ap.add_argument("--exposure_ramp", type=float, default=0.0,
@@ -149,10 +149,6 @@ def main(argv=None) -> None:
     if args.frontend == "orb":
         raise NotImplementedError("--frontend orb: the ORB frontend (cv2) is not ported yet")
     distractor = None if args.distractor == "none" else args.distractor
-    if distractor and args.scene != "multidepth":
-        raise NotImplementedError(
-            "--distractor with --scene plane: the plane sequence's distractor is not ported yet"
-        )
     if args.init == "oracle" and args.scene != "multidepth":
         ap.error("--init oracle requires --scene multidepth (needs GT depth)")
 
@@ -207,7 +203,11 @@ def main(argv=None) -> None:
             if distractor:
                 masks = out[4]
         else:
-            frames, K, gt_cw = synthetic_slam_sequence(args.frames, H, W, device=device, **seq)
+            out = synthetic_slam_sequence(args.frames, H, W, distractor=distractor,
+                                          device=device, **seq)
+            frames, K, gt_cw = out[:3]
+            if distractor:
+                masks = out[3]
         uncs = None
         if masks is not None:
             uncs = [m.astype(np.float32) * args.oracle_unc_value for m in masks]

@@ -1,10 +1,26 @@
-"""Synthetic fixtures."""
+"""Synthetic fixtures, snippet datasets, packed shards and the loader."""
 
+from deep_visual_slam_torch.data.base import SnippetDataset, color_jitter
+from deep_visual_slam_torch.data.loader import (
+    ConcatDataset,
+    DataLoader,
+    VoDataLoader,
+    collate,
+    device_prefetch,
+)
+from deep_visual_slam_torch.data.packed import (
+    PackedSnippetDataset,
+    list_packed_scenes,
+    pack_scene,
+)
 from deep_visual_slam_torch.data.synthetic import (
+    SyntheticStereoDataset,
+    SyntheticVoDataset,
     default_intrinsics,
     make_oracle_inits,
     plane_depth,
     smooth_texture,
+    synthetic_depth_batch,
     synthetic_multidepth_sequence,
     synthetic_slam_sequence,
     synthetic_stereo_batch,
@@ -12,10 +28,23 @@ from deep_visual_slam_torch.data.synthetic import (
 )
 
 __all__ = [
+    "SnippetDataset",
+    "color_jitter",
+    "ConcatDataset",
+    "DataLoader",
+    "VoDataLoader",
+    "collate",
+    "device_prefetch",
+    "PackedSnippetDataset",
+    "list_packed_scenes",
+    "pack_scene",
+    "SyntheticStereoDataset",
+    "SyntheticVoDataset",
     "default_intrinsics",
     "make_oracle_inits",
     "plane_depth",
     "smooth_texture",
+    "synthetic_depth_batch",
     "synthetic_multidepth_sequence",
     "synthetic_slam_sequence",
     "synthetic_stereo_batch",

@@ -120,6 +120,28 @@ def synthetic_vo_batch(
     return batch, truth
 
 
+def _stereo_draw(seed: int, i: int, height: int, width: int):
+    """Texture [1, H, W, 3] and plane depth [1, H, W] of stereo pair ``i``,
+    drawn from ``default_rng((seed, i))``."""
+    rng = np.random.default_rng((seed, i))
+    texture = smooth_texture(rng, 1, height, width)
+    return texture, plane_depth(1, height, width, z0=float(rng.uniform(1.5, 3.0)))
+
+
+def _render_stereo(target: torch.Tensor, depth: torch.Tensor, baseline: float):
+    """The source view of a rectified pair whose source camera sits at
+    +baseline along x: (source, K, T), ``T`` mapping target-frame points
+    into the source camera."""
+    B, H, W = depth.shape
+    K = torch.from_numpy(default_intrinsics(H, W)).to(depth.device)
+    K = K.expand(B, 4, 4).contiguous()
+    T = torch.eye(4, device=depth.device).repeat(B, 1, 1)
+    T[:, 0, 3] = -baseline
+    grid = project(backproject(depth, torch.linalg.inv(K)), K, invert_se3(T))
+    source = grid_sample(target, grid, align_corners=True, padding_mode="border")
+    return source, K, T
+
+
 def synthetic_stereo_batch(
     seed: int,
     batch_size: int,
@@ -128,31 +150,60 @@ def synthetic_stereo_batch(
     baseline: float = 0.1,
     device=None,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """Rectified stereo pairs with an exactly known baseline pose.
+    """Rectified stereo pairs with an exactly known baseline pose: the batch
+    of :class:`SyntheticStereoDataset` items 0 .. batch_size-1.
 
-    The batch of the JAX package's ``SyntheticStereoDataset`` items 0 ..
-    batch_size-1 (sample i drawn from ``default_rng((seed, i))``). Returns
-    ``(batch, truth)``: ``batch`` feeds the stereo loss (keys source_image /
-    target_image / intrinsic / pose, ``pose`` mapping target-frame points
-    into the source camera, which sits at +baseline along x), ``truth``
-    holds the plane depth.
+    Returns ``(batch, truth)``: ``batch`` feeds the stereo loss (keys
+    source_image / target_image / intrinsic / pose, ``pose`` mapping
+    target-frame points into the source camera, which sits at +baseline
+    along x), ``truth`` holds the plane depth.
     """
     device = resolve_device(device)
-    textures, depths = [], []
-    for i in range(batch_size):
-        rng = np.random.default_rng((seed, i))
-        textures.append(smooth_texture(rng, 1, height, width))
-        depths.append(plane_depth(1, height, width, z0=float(rng.uniform(1.5, 3.0))))
-    target = torch.from_numpy(np.concatenate(textures)).to(device)
-    depth = torch.from_numpy(np.concatenate(depths)).to(device)
-    K = torch.from_numpy(default_intrinsics(height, width)).to(device)
-    K = K.expand(batch_size, 4, 4).contiguous()
-    T = torch.eye(4, device=device).repeat(batch_size, 1, 1)
-    T[:, 0, 3] = -baseline
-    grid = project(backproject(depth, torch.linalg.inv(K)), K, invert_se3(T))
-    source = grid_sample(target, grid, align_corners=True, padding_mode="border")
+    draws = [_stereo_draw(seed, i, height, width) for i in range(batch_size)]
+    target = torch.from_numpy(np.concatenate([t for t, _ in draws])).to(device)
+    depth = torch.from_numpy(np.concatenate([d for _, d in draws])).to(device)
+    source, K, T = _render_stereo(target, depth, baseline)
     batch = {"source_image": source, "target_image": target, "intrinsic": K, "pose": T}
     return batch, {"depth": depth}
+
+
+class SyntheticStereoDataset:
+    """Rendered stereo pairs with an exactly known baseline, as indexable
+    samples ``{source_image, target_image, intrinsic, pose, depth}`` (numpy);
+    item ``idx`` is drawn from ``default_rng((seed, idx))`` and rendered on
+    the CPU. ``pose`` maps target-frame points into the source camera, so
+    the photometric optimum is at the true depth."""
+
+    def __init__(
+        self,
+        image_size: Tuple[int, int],
+        length: int = 64,
+        baseline: float = 0.1,
+        seed: int = 0,
+        is_train: bool = True,
+    ):
+        self.image_size = image_size
+        self.length = length
+        self.baseline = baseline
+        self.seed = seed
+        self.is_train = is_train
+
+    def __len__(self) -> int:
+        return self.length
+
+    def __getitem__(self, idx: int, rng=None) -> Dict:
+        H, W = self.image_size
+        target, depth = _stereo_draw(self.seed, idx, H, W)
+        source, K, T = _render_stereo(
+            torch.from_numpy(target), torch.from_numpy(depth), self.baseline
+        )
+        return {
+            "source_image": source[0].numpy(),
+            "target_image": target[0],
+            "intrinsic": K[0].numpy(),
+            "pose": T[0].numpy(),
+            "depth": depth[0],
+        }
 
 
 def synthetic_slam_sequence(
@@ -162,6 +213,8 @@ def synthetic_slam_sequence(
     seed: int = 0,
     step_translation: float = 0.01,
     step_rotation: float = 0.002,
+    distractor: "str | None" = None,
+    flicker_amp: float = 0.3,
     device=None,
 ):
     """Temporally coherent camera sweep over the slanted plane, for the SLAM
@@ -171,22 +224,53 @@ def synthetic_slam_sequence(
     is the plane seen along a random walk (inverse-warp render, as
     :func:`synthetic_vo_batch`), drawn with numpy from ``seed`` and rendered
     on ``device``.
+
+    ``distractor="flicker"`` replaces a rectangle of the plane with
+    :func:`_distractor_texture`, its gain swinging by ``flicker_amp`` per
+    frame (the geometry is untouched; only photometric constancy breaks),
+    and adds a fourth element, ``masks [N, H, W] bool``, of the pixels that
+    sample the patch.
     """
+    if distractor not in (None, "none", "flicker"):
+        raise ValueError(f"slam_sequence distractor must be 'flicker' (got {distractor!r})")
+    if distractor == "none":
+        distractor = None
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     cells = rng.uniform(size=(height // 8 + 1, width // 8 + 1, 3)).astype(np.float32)
     blocky = np.repeat(np.repeat(cells, 8, axis=0), 8, axis=1)[:height, :width]
     tex = 0.75 * blocky + 0.25 * smooth_texture(rng, 1, height, width)[0]
-    target = torch.from_numpy(tex[None]).to(device)
+
+    if distractor:
+        drng = np.random.default_rng(seed * 7919 + 13)
+        gains = 1.0 + flicker_amp * drng.uniform(-1, 1, size=n_frames)
+        r0, r1 = int(0.15 * height), int(0.45 * height)
+        c0, c1 = int(0.55 * width), int(0.85 * width)
+        jj, ii = np.meshgrid(np.arange(c0, c1), np.arange(r0, r1))
+        # ~12 px checker period at any resolution.
+        patch = _distractor_texture(jj * 0.005, ii * 0.005)
+        patch_mask = np.zeros((1, height, width, 1), np.float32)
+        patch_mask[0, r0:r1, c0:c1, 0] = 1.0
+        mask_dev = torch.from_numpy(patch_mask).to(device)
+
+    def tex_for(i):
+        if not distractor:
+            return tex
+        t = tex.copy()
+        t[r0:r1, c0:c1] = np.clip(patch * gains[i], 0.0, 1.0)
+        return t
+
+    target = torch.from_numpy(tex_for(0)[None]).to(device)
     depth = torch.from_numpy(plane_depth(1, height, width)).to(device)
     K_np = default_intrinsics(height, width)
     K = torch.from_numpy(K_np[None]).to(device)
     pts = backproject(depth, torch.linalg.inv(K))
 
-    frames = [tex]
+    frames = [target[0].cpu().numpy()]
     poses = [np.eye(4, dtype=np.float32)]
+    masks = [patch_mask[0, ..., 0] > 0.5] if distractor else None
     T_cw = torch.eye(4, device=device)[None]
-    for _ in range(1, n_frames):
+    for i in range(1, n_frames):
         aa = rng.uniform(-step_rotation, step_rotation, size=(1, 3)).astype(np.float32)
         t = rng.uniform(-step_translation, step_translation, size=(1, 3)).astype(np.float32)
         T_rel = transformation_from_parameters(
@@ -194,10 +278,18 @@ def synthetic_slam_sequence(
         )
         T_cw = T_rel @ T_cw
         grid = project(pts, K, invert_se3(T_cw))
+        if distractor:
+            target = torch.from_numpy(tex_for(i)[None]).to(device)
         view = grid_sample(target, grid, align_corners=True, padding_mode="border")
         frames.append(view[0].cpu().numpy())
         poses.append(T_cw[0].cpu().numpy().astype(np.float32))
-    return np.stack(frames).astype(np.float32), K_np.astype(np.float32), np.stack(poses)
+        if distractor:
+            m = grid_sample(mask_dev, grid, align_corners=True, padding_mode="zeros")
+            masks.append(m[0, ..., 0].cpu().numpy() > 0.5)
+    out = (np.stack(frames).astype(np.float32), K_np.astype(np.float32), np.stack(poses))
+    if distractor:
+        return out + (np.stack(masks),)
+    return out
 
 
 def _distractor_texture(x: np.ndarray, y: np.ndarray, cell: float = 0.06) -> np.ndarray:
@@ -341,6 +433,56 @@ def synthetic_multidepth_sequence(
     if distractor:
         return out + (np.stack(masks),)
     return out
+
+
+class SyntheticVoDataset:
+    """Indexable synthetic snippets with the :class:`SnippetDataset`
+    interface: item ``idx`` is the photometrically consistent triplet of
+    ``synthetic_vo_batch(seed * 100003 + idx, 1, H, W)``, rendered on the
+    CPU, with the 4-scale intrinsics pyramid; in evaluation
+    (``is_train=False``) also the generating relative poses (source ->
+    target) under the keys of the path datasets."""
+
+    def __init__(self, image_size, length: int = 256, seed: int = 0, is_train: bool = True):
+        self.image_size = image_size
+        self.length = length
+        self.seed = seed
+        self.is_train = is_train
+
+    def __len__(self) -> int:
+        return self.length
+
+    def __getitem__(self, idx: int, rng=None) -> Dict:
+        H, W = self.image_size
+        batch, truth = synthetic_vo_batch(self.seed * 100003 + idx, 1, H, W, device="cpu")
+        sample = {k: v[0].numpy() for k, v in batch.items()}
+        K = sample["K"]
+        for s in range(4):
+            Ks = K.copy()
+            Ks[0, :] /= 2**s
+            Ks[1, :] /= 2**s
+            sample[f"K_{s}"] = Ks
+            sample[f"inv_K_{s}"] = np.linalg.inv(Ks).astype(np.float32)
+        if not self.is_train:
+            # truth["T_left"] maps target -> left; the left pair's GT is
+            # left -> target.
+            sample["gt_pose_left_to_target"] = torch.linalg.inv(truth["T_left"][0]).numpy()
+            sample["gt_pose_target_to_right"] = truth["T_right"][0].numpy()
+            sample["frame_indices"] = np.array([idx, idx + 1, idx + 2])
+        return sample
+
+
+def synthetic_depth_batch(
+    seed: int, batch_size: int, height: int, width: int, max_depth: float = 10.0,
+    device=None,
+) -> Dict[str, torch.Tensor]:
+    """Supervised-depth sample: ``image`` [B, H, W, 3], metric ``depth``
+    [B, H, W, 1] of the slanted plane and its ``valid_mask``."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    image = torch.from_numpy(smooth_texture(rng, batch_size, height, width)).to(device)
+    depth = torch.from_numpy(plane_depth(batch_size, height, width)).to(device)[..., None]
+    return {"image": image, "depth": depth, "valid_mask": (depth > 0) & (depth < max_depth)}
 
 
 def _perturb_rel(rel: np.ndarray, rot_noise: np.ndarray, trans_noise: np.ndarray) -> np.ndarray:

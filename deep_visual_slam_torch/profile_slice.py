@@ -3,7 +3,11 @@
     python3 -m deep_visual_slam_torch.profile_slice
 
 Runs ``make_vo_train_step`` and ``make_vo_eval_step`` at the
-``configs/vo.yaml`` size (B=16, 480x640, bf16), ``Networks.step`` at B=1 and
+``configs/vo.yaml`` size (B=16, 480x640, bf16), the trainer's step at the
+``configs/vo_fixture_640.yaml`` size (B=8, 480x640, bf16, device jitter,
+uint8 batches) fed by its loader from a packed scene (60 frames of a plane
+sweep, rendered on the card and packed under ``build/``) and from a batch
+held on the card, ``Networks.step`` at B=1 and
 the SLAM loop (``MonoVO`` at 480x640 with bf16 networks, ``num_kf=7``,
 ``max_points=256``, BA levels (2, 1)) under ``torch.profiler``, after
 warm-up, with random weights from the config's seed. The SLAM keyframes
@@ -26,6 +30,7 @@ time, in groups and by kernel. Fails if the profiler records no device time.
 
 from __future__ import annotations
 
+import shutil
 import time
 from pathlib import Path
 
@@ -34,8 +39,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from deep_visual_slam_torch.data import (
+    device_prefetch,
+    pack_scene,
     smooth_texture,
     synthetic_multidepth_sequence,
+    synthetic_slam_sequence,
     synthetic_vo_batch,
 )
 from deep_visual_slam_torch.slam import MonoVO, Networks
@@ -46,9 +54,12 @@ from deep_visual_slam_torch.training import (
     make_vo_eval_step,
     make_vo_train_step,
 )
+from deep_visual_slam_torch.training.vo_trainer import Trainer
 from deep_visual_slam_torch.utils.config import load_config
 
-CONFIG = Path(__file__).resolve().parents[1] / "configs" / "vo.yaml"
+ROOT = Path(__file__).resolve().parents[1]
+CONFIG = ROOT / "configs" / "vo.yaml"
+FIXTURE = ROOT / "configs" / "vo_fixture_640.yaml"
 # Kernel-name fragments of the groups whose device time is summed.
 GROUPS = {
     "K1 reprojection_loss_kernel": ("reprojection_loss_kernel",),
@@ -140,12 +151,45 @@ def main() -> None:
         *init_vo_models(train["seed"], predict_uncertainty=cfg.uncertainty), cfg, dtype
     )
     _profile(f"eval step {size}", lambda: step(batch, noise_gen), reps=5)
+    _profile_trainer()
 
     frames = smooth_texture(np.random.default_rng(1), 2, train["img_h"], train["img_w"])
     frames = (frames * 255).round().astype(np.uint8)
     nets = Networks(dtype=getattr(torch, train["compute_dtype"]), seed=0)
     _profile("Networks.step B=1", lambda: nets.step(frames[0], frames[1]), reps=20)
     _profile_slam(nets)
+
+
+def _profile_trainer() -> None:
+    root = ROOT / "build" / "profile_trainer"
+    shutil.rmtree(root, ignore_errors=True)
+    config = load_config(FIXTURE, overrides={
+        "Directory": {"data_dir": f"{root}/data/", "log_dir": f"{root}/tb",
+                      "weights": f"{root}/weights", "results": f"{root}/results"},
+        "Dataset": {"packed": {"mono": True, "root": f"{root}/packed"}},
+    })
+    t = config["Train"]
+    frames, K, gt = synthetic_slam_sequence(
+        60, t["img_h"], t["img_w"], seed=1000, step_translation=0.02, step_rotation=0.004
+    )
+    pack_scene(f"{root}/packed/train/scene_000", (frames * 255).round().astype(np.uint8), K,
+               poses=np.linalg.inv(gt.astype(np.float64)).astype(np.float32))
+    trainer = Trainer(config)
+
+    def epochs():
+        while True:
+            yield from trainer.data_loader.train_loader
+
+    batches = device_prefetch(epochs())
+    step, state, gen = trainer.train_step, trainer.state, trainer.generator
+    size = (f"B={t['batch_size']} {t['img_h']}x{t['img_w']} {t['compute_dtype']}, "
+            f"device jitter, uint8 batches")
+    _profile(f"trainer step with its loader (packed scene, {t['num_workers']} threads) {size}",
+             lambda: step(state, next(batches), gen), reps=5)
+    batch = next(batches)
+    _profile(f"trainer step on a batch held on the card {size}",
+             lambda: step(state, batch, gen), reps=5)
+    shutil.rmtree(root)
 
 
 def _profile_slam(nets: Networks) -> None:

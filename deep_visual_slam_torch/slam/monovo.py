@@ -76,6 +76,25 @@ class Networks:
         self.depth_model.to(self.device).eval()
         self.pose_model.to(self.device).eval()
 
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir: str, **kwargs) -> "Networks":
+        """The networks of the newest VO trainer checkpoint under
+        ``ckpt_dir`` (``<weights>/<experiment_name>``). The uncertainty head
+        is on when the depth weights hold it (decoder index 14, the
+        reference's ``uncconv_0``), unless ``predict_uncertainty`` is given;
+        other ``kwargs`` pass to the constructor."""
+        from deep_visual_slam_torch.utils.checkpoint import load_latest_tree
+
+        loaded = load_latest_tree(ckpt_dir)
+        if loaded is None:
+            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+        tree, step = loaded
+        print(f"Networks.from_checkpoint: {ckpt_dir} @ step {step}")
+        kwargs.setdefault(
+            "predict_uncertainty", any(k.startswith("decoder.14.") for k in tree["depth"])
+        )
+        return cls(depth_state=tree["depth"], pose_state=tree["pose"], **kwargs)
+
     def _autocast(self):
         return torch.autocast(
             self.device.type, self.dtype, enabled=self.dtype != torch.float32

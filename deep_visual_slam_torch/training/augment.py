@@ -125,7 +125,8 @@ def batch_snippet_jitter(
         gate.reshape(-1, 1, 1, 1, 1), apply_color_jitter(triplet, b, c, s, h), triplet
     )
     out = dict(batch)
-    out["source_left"] = jittered[:, 0]
-    out["target_image"] = jittered[:, 1]
-    out["source_right"] = jittered[:, 2]
+    # Contiguous NHWC frames: kernel K1 takes no other layout.
+    out["source_left"] = jittered[:, 0].contiguous()
+    out["target_image"] = jittered[:, 1].contiguous()
+    out["source_right"] = jittered[:, 2].contiguous()
     return out

@@ -1,6 +1,7 @@
 """YAML config, schema-compatible with the reference (copy of the JAX
 package's ``utils/config.py``), so the port reads ``configs/vo.yaml``
-unchanged."""
+unchanged, and the run name the trainer files its logs and checkpoints
+under."""
 
 from __future__ import annotations
 
@@ -79,3 +80,21 @@ def load_config(path: str | Path | None = None, overrides: Dict | None = None) -
     if overrides:
         _deep_update(cfg, overrides)
     return cfg
+
+
+def experiment_name(config: Dict) -> str:
+    """The run name: ``<exp_name>_ep<epoch>_bs<batch>_lr<init_lr>_<H>x<W>``."""
+    t = config["Train"]
+    return (
+        f"{config['Directory']['exp_name']}"
+        f"_ep{t['epoch']}_bs{t['batch_size']}"
+        f"_lr{t['init_lr']}_{t['img_h']}x{t['img_w']}"
+    )
+
+
+def save_config(config: Dict, path: str | Path) -> None:
+    import yaml
+
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f, sort_keys=False)

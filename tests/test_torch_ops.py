@@ -146,8 +146,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 def test_port_imports_no_jax():
     """A static scan of the port's sources and chip_smoke.py: no import of
     jax, flax, optax or the JAX package (the interpreter may have loaded
-    JAX already, so sys.modules proves nothing)."""
-    banned = {"jax", "jaxlib", "flax", "optax", "deep_visual_slam_tpu"}
+    JAX already, so sys.modules proves nothing), nor of cv2, which the
+    card's machine lacks."""
+    banned = {"jax", "jaxlib", "flax", "optax", "deep_visual_slam_tpu", "cv2"}
     files = sorted((REPO / "deep_visual_slam_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10

@@ -266,8 +266,9 @@ def _assert_close(got, want):
 
 def test_ba_ablation_entry_point(tmp_path):
     """``python3 -m deep_visual_slam_torch.ba_ablation`` at 48x64 on the CPU
-    writes the three configurations' numbers; ``--vo_ckpt`` and
-    ``--frontend orb`` name what is not ported."""
+    writes the three configurations' numbers; ``--vo_ckpt`` of a directory
+    with no checkpoint says so, and ``--frontend orb`` names what is not
+    ported."""
     out = tmp_path / "ablation.json"
     ba_ablation.main(["--init", "oracle", "--frames", "6", "--size", "64", "96", "--seeds", "100",
                       "--device", "cpu", "--out_json", str(out)])
@@ -276,8 +277,8 @@ def test_ba_ablation_entry_point(tmp_path):
     assert sorted(scene) == ["no_ba", "windowed_ba", "windowed_plus_global_ba"]
     for m in scene.values():
         assert m["keyframes"] >= 3 and np.isfinite(m["kf_ate_rmse"])
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        ba_ablation.main(["--vo_ckpt", "weights/vo", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        ba_ablation.main(["--vo_ckpt", str(tmp_path / "no_run"), "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ORB"):
         ba_ablation.main(["--frontend", "orb", "--device", "cpu"])
 

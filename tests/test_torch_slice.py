@@ -112,3 +112,26 @@ def test_networks_match_jax(rng, uint8):
     np.testing.assert_allclose(nets.pose(prev, cur), jnets.pose(prev, cur), atol=1e-6)
     np.testing.assert_allclose(nets.depth(cur), depth)
     assert nets.depth_unc(cur)[1] is None
+
+
+def test_networks_match_jax_in_bf16(rng):
+    """``Networks.step`` under bf16 against JAX's ``Networks(dtype=bfloat16)``
+    with the same weights. bf16 keeps 8 bits of mantissa, and each side
+    rounds its activations at every layer in its own way: measured over
+    three inputs at 64x96, each side's bf16 depth leaves its own fp32 depth
+    by up to 7.7e-3 (1.4e-3 on average), and the two bf16 depths differ by
+    up to 8.5e-3 (1.7e-3 on average), the translations by 1.2e-4 of ~2.7e-2
+    and the rotations by 6e-5: the same order, rounding and not a
+    disagreement. Held to rtol 2e-2 per pixel, 4e-3 on average, and atol
+    3e-4 on the pose."""
+    dv, pv = jax_variables("depth"), jax_variables("pose")
+    jnets = JaxNetworks(dv, pv, image_shape=(H, W), dtype=jnp.bfloat16)
+    nets = Networks(
+        depthnet_from_jax(dv), posenet_from_jax(pv), dtype=torch.bfloat16, device="cpu"
+    )
+    prev, cur = rng.uniform(size=(2, H, W, 3)).astype(np.float32)
+    depth, T = nets.step(prev, cur)
+    jdepth, jT = jnets.step(prev, cur)
+    rel = np.abs(depth - jdepth) / np.abs(jdepth)
+    assert rel.max() <= 2e-2 and rel.mean() <= 4e-3, (rel.max(), rel.mean())
+    np.testing.assert_allclose(T, jT, rtol=0, atol=3e-4)

@@ -333,6 +333,15 @@ def test_snippet_jitter_is_one_draw_per_snippet():
     assert torch.equal(changed, gate)
 
 
+def test_snippet_jitter_outputs_are_contiguous():
+    """The jittered frames feed kernel K1 on the card, which takes
+    contiguous NHWC images only."""
+    batch, _ = synthetic_vo_batch(0, 2, 12, 16, device="cpu")
+    out = augment.batch_snippet_jitter(batch, torch.Generator().manual_seed(3))
+    for k in ("source_left", "target_image", "source_right"):
+        assert out[k].is_contiguous(), k
+
+
 def test_remat_matches_plain_and_moves_batchnorm_once():
     """``remat=True`` (checkpointed DepthNet) gives the plain step's losses
     and updated weights, and its BatchNorm statistics move once per step,
