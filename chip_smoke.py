@@ -70,6 +70,25 @@ the run with a non-zero exit code and no result line:
    epoch of the resumed trainer, CUDA events at each step, no host
    synchronisation), frames/s, and the same step fed from a batch held on
    the card, timed the same way.
+10. Supervised depth at the full width of ``configs/depth.yaml`` (ResNet-18
+   DepthNet, B=64, 480x640, bf16, AdamW), which launches no kernel of the
+   port's own. (a) One ``make_depth_train_step`` step at 2x64x96 in fp32,
+   the card against the CPU (losses, the gradient of every parameter, the
+   updated weights, phase 6's tolerances). (b) The depth ``Trainer``, cut
+   to one epoch, on an in-memory ``DepthSampleDataset`` (192 train and 128
+   valid samples over a pool of 16 textured slanted planes, depth in mm):
+   3 train steps, a validation of 2 through ``DepthMetrics``, the
+   checkpoint; finite losses and metrics, no K1 launch; a second
+   ``Trainer`` on the same directory resumes at epoch 2 with the weights
+   and optimizer state equal bit for bit. (c) ``eval_depth_cli.evaluate``
+   on the checkpoint and the valid loader against ``Trainer.validate``'s
+   metrics. (d) ms per train step and per validation step on batches held
+   on the card, images/s, device memory high-water.
+11. ``export_vo_inference`` at B=1 x 480x640 (uint8 in), the networks in
+   fp32 and then in bf16: saved, loaded and run against the eager models
+   on the same frames, ms/frame of each; the ResNet-50 DepthNet and
+   ``TwoEncoderPoseNet`` on the card against the CPU at 2x64x96 fp32 and one
+   480x640 bf16 forward each for its time and memory.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
@@ -245,6 +264,24 @@ RESUME_RTOL = 5e-2
 # models on the same frame, same device and dtype: the same weights through
 # the same kernels, so equal (depth rtol, pose atol; measured 0 and 0).
 READER_DEPTH_RTOL, READER_POSE_ATOL = 0.0, 0.0
+# Phase 10: 3 train steps and 2 validation steps of B=64 over a pool of 16
+# distinct samples (seeded). The evaluation CLI's function against
+# Trainer.validate's metrics: the same weights through the same network on
+# the same batches, so equal up to the order of the float64 sums, 1e-6
+# (measured 0 on an NVIDIA H100 80GB HBM3, 700 W, in two runs).
+DEPTH_SEED, DEPTH_POOL = 7, 16
+DEPTH_CLI_RTOL = 1e-6
+# Phase 11: the loaded export against the eager models in the same dtype
+# (fp32, then bf16) on the same frames. The exported graph runs the same
+# operators, some decomposed (BatchNorm in inference), so it may round
+# otherwise: depth within 1e-4 relative, T within 1e-5 (a pose of
+# 0.01-scaled outputs); measured 0 and 0 in both dtypes (NVIDIA H100 80GB
+# HBM3, 700 W). The ResNet-50 DepthNet and TwoEncoderPoseNet, card against
+# CPU in fp32 at 64x96, within the CPU parity tests' 1e-4 against JAX
+# (measured 6.0e-7 and 9.3e-10).
+EXPORT_SEED = 11
+EXPORT_DEPTH_RTOL, EXPORT_T_ATOL = 1e-4, 1e-5
+SMALL_NET_ATOL = 1e-4
 
 
 def check(ok: bool, what: str) -> None:
@@ -547,6 +584,32 @@ def _weights(model):
             if not k.endswith("num_batches_tracked")}
 
 
+def _step_agreement(results):
+    """One train step on the CPU and on the card, ``results`` = [(losses,
+    weights, grads)] for each: the worst relative loss difference (the
+    gradient norm aside), the gradient's difference relative to its 2-norm,
+    the worst parameter's relative to its own, the largest difference of an
+    updated weight, and the worst BatchNorm statistic as a share of its
+    tolerance."""
+    (lc, wc, gc), (lg, wg, gg) = results
+    worst_loss = max(abs(lg[k] - lc[k]) / abs(lc[k]) for k in lc if k != "grad_norm")
+    sq_err = sq_want = worst_leaf = 0.0
+    for k, want in gc.items():
+        err, scale = (gg[k] - want).norm().item(), want.norm().item()
+        worst_leaf = max(worst_leaf, err / scale)
+        sq_err, sq_want = sq_err + err**2, sq_want + scale**2
+    rel_grad = (sq_err / sq_want) ** 0.5
+    worst_w = worst_s = 0.0
+    for k, v in wc.items():
+        err = (wg[k] - v).abs()
+        if k.endswith(("running_mean", "running_var")):
+            worst_s = max(worst_s, (err / (TRAIN_STATS_ATOL + TRAIN_STATS_RTOL * v.abs()))
+                          .max().item())
+        else:
+            worst_w = max(worst_w, err.max().item())
+    return worst_loss, rel_grad, worst_leaf, worst_w, worst_s
+
+
 def phase_train(k1, k1_ms, k1_bwd_ms, config):
     from deep_visual_slam_torch.data import synthetic_stereo_batch, synthetic_vo_batch
     from deep_visual_slam_torch.training import (
@@ -590,22 +653,8 @@ def phase_train(k1, k1_ms, k1_bwd_ms, config):
                           for k, p in model.named_parameters()})
         results.append(({k: v.item() for k, v in losses.items()}, weights, grads))
     (lc, wc, gc), (lg, wg, gg) = results
-    worst_loss = max(abs(lg[k] - lc[k]) / abs(lc[k]) for k in lc if k != "grad_norm")
+    worst_loss, rel_grad, worst_leaf, worst_w, worst_s = _step_agreement(results)
     rel_norm = abs(lg["grad_norm"] - lc["grad_norm"]) / lc["grad_norm"]
-    sq_err = sq_want = worst_leaf = 0.0
-    for k, want in gc.items():
-        err, scale = (gg[k] - want).norm().item(), want.norm().item()
-        worst_leaf = max(worst_leaf, err / scale)
-        sq_err, sq_want = sq_err + err**2, sq_want + scale**2
-    rel_grad = (sq_err / sq_want) ** 0.5
-    worst_w = worst_s = 0.0
-    for k, v in wc.items():
-        err = (wg[k] - v).abs()
-        if k.endswith(("running_mean", "running_var")):
-            worst_s = max(worst_s, (err / (TRAIN_STATS_ATOL + TRAIN_STATS_RTOL * v.abs()))
-                          .max().item())
-        else:
-            worst_w = max(worst_w, err.max().item())
     print(
         f"  2x64x96 fp32, card vs CPU: losses within rtol {worst_loss:.2e} "
         f"(<= {TRAIN_LOSS_RTOL:.0e}), grad_norm {lg['grad_norm']:.6f} vs "
@@ -1237,6 +1286,298 @@ def phase_trainer(k1, kept, card):
     return launches
 
 
+def _randomize_bn(model, seed):
+    """BatchNorm running statistics of ``model`` drawn from ``seed`` (so that
+    eval-mode normalization is not the identity)."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            if k.endswith("running_var"):
+                v.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, v.shape).astype(np.float32)))
+            elif k.endswith("running_mean"):
+                v.copy_(torch.from_numpy(rng.uniform(-0.2, 0.2, v.shape).astype(np.float32)))
+    return model
+
+
+def _depth_datasets(height, width, train_n, valid_n):
+    """Phase 10's in-memory data: ``train_n`` and ``valid_n`` samples over a
+    pool of ``DEPTH_POOL`` textured slanted planes (``smooth_texture`` over
+    ``plane_depth`` with a drawn distance and slope, depth in millimetres
+    as uint16, as NYU's PNGs hold it), indexed modulo the pool."""
+    from deep_visual_slam_torch.data.base import DepthSampleDataset
+    from deep_visual_slam_torch.data.synthetic import plane_depth, smooth_texture
+
+    class PoolDepthDataset(DepthSampleDataset):
+        def __init__(self, n, is_train, pool):
+            super().__init__(n, (height, width), 10.0, is_train, is_train)
+            self.pool = pool
+
+        def _load(self, idx):
+            return self.pool[idx % len(self.pool)]
+
+    rng = np.random.default_rng(DEPTH_SEED)
+    pool = []
+    for _ in range(DEPTH_POOL):
+        image = smooth_texture(rng, 1, height, width)[0]
+        depth = plane_depth(1, height, width, z0=rng.uniform(1.0, 6.0),
+                            slope=rng.uniform(-1.0, 1.0))[0]
+        pool.append((image, np.round(depth * 1000.0).astype(np.uint16)))
+    return PoolDepthDataset(train_n, True, pool), PoolDepthDataset(valid_n, False, pool)
+
+
+def phase_depth(k1, card):
+    from deep_visual_slam_torch.data.loader import collate, device_prefetch
+    from deep_visual_slam_torch.data.nyu import DepthLoader
+    from deep_visual_slam_torch.eval_depth_cli import evaluate, load_depth_weights
+    from deep_visual_slam_torch.training import (
+        DepthLossConfig,
+        TrainState,
+        init_depth_model,
+        make_depth_train_step,
+    )
+    from deep_visual_slam_torch.training.depth_trainer import Trainer
+    from deep_visual_slam_torch.utils.config import load_config
+
+    print("phase 10: supervised depth at configs/depth.yaml: the train step, the Trainer, "
+          "its checkpoint, resume and evaluation")
+    start_phase = time.perf_counter()
+    root = ROOT / "build" / "phase10"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def config(run):
+        return load_config(ROOT / "configs" / "depth.yaml", overrides={
+            "Directory": {"log_dir": f"{root}/{run}/tb", "weights": f"{root}/{run}/weights",
+                          "results": f"{root}/{run}/results", "data_dir": f"{root}/data"},
+            "Train": {"epoch": 1, "valid_freq": 1, "save_freq": 1},
+        })
+
+    cfg_a = config("a")
+    t = cfg_a["Train"]
+    cfg = DepthLossConfig.from_config(cfg_a)
+
+    # (a) Small input, fp32: one step on the card against the CPU.
+    small, _ = _depth_datasets(64, 96, 2, 0)
+    batch = collate([small.__getitem__(i, np.random.default_rng(i)) for i in range(2)])
+    results = []
+    for device in ("cpu", "cuda"):
+        model = init_depth_model(t["seed"])
+        state = TrainState.create(model, None, t["init_lr"], 100, beta1=t["beta1"],
+                                  weight_decay=t["weight_decay"])
+        losses = make_depth_train_step(model, cfg, torch.float32, device=device)(state, batch)
+        results.append(({k: v.item() for k, v in losses.items()},
+                        {f"depth.{k}": v for k, v in _weights(model).items()},
+                        {f"depth.{k}": p.grad.detach().cpu()
+                         for k, p in model.named_parameters()}))
+    worst_loss, rel_grad, worst_leaf, worst_w, worst_s = _step_agreement(results)
+    print(
+        f"  (a) 2x64x96 fp32, card vs CPU, one step (SILog + smoothness, AdamW): losses "
+        f"within rtol {worst_loss:.2e} (<= {TRAIN_LOSS_RTOL:.0e}); gradient within "
+        f"{rel_grad:.2e} of its 2-norm (<= {TRAIN_GRAD_RTOL:.0e}), worst of "
+        f"{len(results[0][2])} parameters within {worst_leaf:.2e} of its own (<= "
+        f"{TRAIN_GRAD_LEAF_RTOL:.0e}); updated weights within atol {worst_w:.2e} (<= "
+        f"{TRAIN_WEIGHT_ATOL:.1e}); BatchNorm statistics at {worst_s:.2f} of their tolerance"
+    )
+    check(worst_loss <= TRAIN_LOSS_RTOL, "small depth losses")
+    check(rel_grad <= TRAIN_GRAD_RTOL, "small depth gradient")
+    check(worst_leaf <= TRAIN_GRAD_LEAF_RTOL, "small depth gradient of each parameter")
+    check(worst_w <= TRAIN_WEIGHT_ATOL, "small depth updated weights")
+    check(worst_s <= 1.0, "small depth BatchNorm statistics")
+
+    # (b) The Trainer at full width, one epoch of 3 steps and a validation
+    # of 2, the counts set to 0 just before.
+    B, H, W = t["batch_size"], t["img_h"], t["img_w"]
+    t0 = time.perf_counter()
+    train_ds, valid_ds = _depth_datasets(H, W, 3 * B, 2 * B)
+    loader = DepthLoader(cfg_a, train_ds, valid_ds)
+    data_s = time.perf_counter() - t0
+    a = Trainer(cfg_a, data_loader=loader)
+    check(a.steps_per_epoch == 3, f"3 steps an epoch (got {a.steps_per_epoch})")
+    log, metrics, saves = [], {}, []
+    train_step, eval_step, validate, save = a.train_step, a.eval_step, a.validate, a.ckpt.save
+
+    def recorded_train(state, batch):
+        losses = train_step(state, batch)
+        log.append(("train", {k: v.detach().clone() for k, v in losses.items()}))
+        return losses
+
+    def recorded_eval(batch):
+        losses, depth = eval_step(batch)
+        log.append(("eval", {k: v.clone() for k, v in losses.items()}))
+        check(depth.shape == (B, H, W, 1), f"validation depth shape {tuple(depth.shape)}")
+        return losses, depth
+
+    def timed_save(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(*args, **kw)
+        saves.append(((time.perf_counter() - t0) * 1e3, Path(path).stat().st_size))
+        return path
+
+    a.train_step, a.eval_step, a.ckpt.save = recorded_train, recorded_eval, timed_save
+    a.validate = lambda epoch: metrics.update(validate(epoch)) or metrics
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k1.backward_launches = 0
+    t0 = time.perf_counter()
+    a.train()
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    launches = (k1.launches, k1.backward_launches)
+    peak_b = torch.cuda.max_memory_allocated()
+    check(launches == (0, 0), f"the depth path launches no K1 (got {launches})")
+    check([kind for kind, _ in log] == ["train"] * 3 + ["eval"] * 2,
+          f"3 train and 2 validation steps: {[kind for kind, _ in log]}")
+    for kind, losses in log:
+        check(all(bool(torch.isfinite(v)) for v in losses.values()), f"{kind} losses finite")
+    check(len(metrics) == 10 and all(np.isfinite(v) for v in metrics.values()),
+          f"validation loss and DepthMetrics finite: {metrics}")
+    check(a.ckpt.latest_step() == 3 and len(saves) == 1, "the epoch's checkpoint written")
+    curve = " -> ".join(f"{losses['loss'].item():.5f}" for kind, losses in log if kind == "train")
+    print(
+        f"  (b) {card}: Trainer at B={B} {H}x{W} {t['compute_dtype']} (ResNet-18 DepthNet, "
+        f"AdamW lr {t['init_lr']} wd {t['weight_decay']}), {len(train_ds)} train samples (3 "
+        f"steps) and {len(valid_ds)} valid (2 steps) over a pool of {DEPTH_POOL} planes "
+        f"(made in {data_s:.1f} s); one epoch and a validation in {wall_a:.1f} s (first step "
+        f"included); loss {curve}; validation "
+        + ", ".join(f"{k[6:]} {v:.5f}" for k, v in metrics.items())
+        + f"; checkpoint {saves[0][0]:.1f} ms (synchronised), {saves[0][1] / 2**20:.1f} MiB; "
+        f"device memory high-water {peak_b / 2**30:.2f} GiB; K1 launches {launches[0]} "
+        f"forward, {launches[1]} backward"
+    )
+
+    # The resume: a second Trainer on the same directory.
+    resumed = Trainer(cfg_a, data_loader=loader)
+    check((resumed.start_epoch, resumed.state.step) == (2, 3),
+          f"resumed at epoch 2, update 3 (got {resumed.start_epoch}, {resumed.state.step})")
+    want = a.state.depth_model.state_dict()
+    diff = [k for k, v in resumed.state.depth_model.state_dict().items()
+            if not torch.equal(v, want[k])]
+    opt_a = a.state.optimizer.state_dict()
+    opt_r = resumed.state.optimizer.state_dict()
+    opt_diff = [(i, k) for i, s in opt_a["state"].items() for k, v in s.items()
+                if not torch.equal(opt_r["state"][i][k].cpu(), v.cpu())]
+    check(not diff and not opt_diff and opt_r["param_groups"] == opt_a["param_groups"],
+          f"resumed weights and optimizer state equal bit for bit (differ: {diff[:3]}, "
+          f"{opt_diff[:3]})")
+    print(f"  resume: a new Trainer on the same directory starts at epoch 2, update 3; its "
+          f"{len(want)} weights and statistics and the AdamW state of "
+          f"{len(opt_a['state'])} parameters equal the trainer's bit for bit")
+
+    # (c) The evaluation CLI's function on the checkpoint and valid loader.
+    model = init_depth_model(0)
+    load_depth_weights(model, a.ckpt.directory)
+    n, cli = evaluate(model, loader.valid_loader, cfg.min_depth, cfg.max_depth,
+                      getattr(torch, t["compute_dtype"]))
+    cli_err = max(abs(cli[k] - metrics[f"valid/{k}"]) / max(abs(metrics[f"valid/{k}"]), 1e-12)
+                  for k in cli)
+    check(n == 2 * B, f"the CLI evaluated {n} samples")
+    check(cli_err <= DEPTH_CLI_RTOL, f"eval_depth_cli's metrics against validate's: {cli_err:.2e}")
+    print(f"  (c) eval_depth_cli.evaluate on the checkpoint and the valid loader: {n} samples, "
+          f"metrics within {cli_err:.2e} of Trainer.validate's relative (tolerance "
+          f"{DEPTH_CLI_RTOL:.0e})")
+
+    # (d) The step and the validation step on batches held on the card.
+    batch = next(iter(device_prefetch(loader.train_loader)))
+    vbatch = next(iter(device_prefetch(loader.valid_loader)))
+    a.train_step, a.eval_step = train_step, eval_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a.state.depth_model.train()
+    step_ms = cuda_ms(lambda: a.train_step(a.state, batch), reps=3)
+    peak_step = torch.cuda.max_memory_allocated()
+    a.state.depth_model.eval()
+    valid_ms = cuda_ms(lambda: a.eval_step(vbatch), reps=3)
+    print(
+        f"  (d) {card}: depth train step B={B} {H}x{W} {t['compute_dtype']} on a batch held "
+        f"on the card {step_ms:.2f} ms (3 back to back between CUDA events, median of 5) = "
+        f"{1e3 * B / step_ms:.1f} images/s; validation step {valid_ms:.2f} ms; device memory "
+        f"high-water of the steps {peak_step / 2**30:.2f} GiB"
+    )
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase {time.perf_counter() - start_phase:.1f} s")
+    return launches
+
+
+def phase_export(k1, card):
+    from deep_visual_slam_torch.data import synthetic_vo_batch
+    from deep_visual_slam_torch.models import DepthNet, TwoEncoderPoseNet
+    from deep_visual_slam_torch.training import init_vo_models
+    from deep_visual_slam_torch.utils.export import (
+        export_vo_inference,
+        load_exported,
+        make_vo_inference_fn,
+    )
+
+    print("phase 11: the VO inference export, the ResNet-50 DepthNet and TwoEncoderPoseNet")
+    start_phase = time.perf_counter()
+    root = ROOT / "build" / "phase11"
+    shutil.rmtree(root, ignore_errors=True)
+    H, W = 480, 640
+    depth, pose = (_randomize_bn(m, s) for m, s in zip(init_vo_models(EXPORT_SEED), (1, 2)))
+    k1.launches = k1.backward_launches = 0
+    batch, _ = synthetic_vo_batch(EXPORT_SEED, 1, H, W)
+    frame, prev = ((batch[k] * 255).round().to(torch.uint8)
+                   for k in ("target_image", "source_left"))
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        t0 = time.perf_counter()
+        path = export_vo_inference(depth, pose, str(root / f"vo_{name}.pt2"), (H, W),
+                                   batch=1, compute_dtype=dtype)
+        export_s = time.perf_counter() - t0
+        loaded = load_exported(path)
+        eager = make_vo_inference_fn(depth, pose, compute_dtype=dtype)
+        with torch.inference_mode():
+            got = loaded(frame, prev)
+            want = eager(frame, prev)
+            check([tuple(x.shape) for x in got] == [(1, H, W), (1, 4, 4), (1, H, W, 1)]
+                  and all(x.dtype == torch.float32 for x in got),
+                  f"exported outputs {[(tuple(x.shape), x.dtype) for x in got]}")
+            depth_err = ((got[0] - want[0]).abs() / want[0]).max().item()
+            T_err = (got[1] - want[1]).abs().max().item()
+            disp_err = (got[2] - want[2]).abs().max().item()
+            loaded_ms = cuda_ms(lambda: loaded(frame, prev), reps=20)
+            eager_ms = cuda_ms(lambda: eager(frame, prev), reps=20)
+        check(depth_err <= EXPORT_DEPTH_RTOL and T_err <= EXPORT_T_ATOL,
+              f"the loaded {name} export against the eager models: depth {depth_err:.2e}, "
+              f"T {T_err:.2e}")
+        print(
+            f"  {card}: export_vo_inference at B=1 {H}x{W} uint8, networks in {name}, in "
+            f"{export_s:.1f} s, {Path(path).stat().st_size / 2**20:.1f} MiB; loaded and run "
+            f"against the eager models in {name} on the same frames: depth within "
+            f"{depth_err:.2e} relative (<= {EXPORT_DEPTH_RTOL:.0e}), T within {T_err:.2e} (<= "
+            f"{EXPORT_T_ATOL:.0e}), disparity within {disp_err:.2e}; {loaded_ms:.3f} ms/frame "
+            f"loaded against {eager_ms:.3f} eager (20 back to back between CUDA events, "
+            f"median of 5)"
+        )
+
+    rng = np.random.default_rng(EXPORT_SEED)
+    g = torch.Generator().manual_seed(EXPORT_SEED)
+    for name, net, channels in (("ResNet-50 DepthNet", DepthNet(50, generator=g), 3),
+                                ("TwoEncoderPoseNet", TwoEncoderPoseNet(generator=g), 6)):
+        net = _randomize_bn(net, 3).eval()
+        x = torch.from_numpy(rng.uniform(size=(2, 64, 96, channels)).astype(np.float32))
+        with torch.inference_mode():
+            outs = []
+            for device in ("cpu", "cuda"):
+                out = net.to(device)(x.to(device))
+                outs.append([v.cpu() for v in (out.values() if isinstance(out, dict) else out)])
+            err = max((a - b).abs().max().item() for a, b in zip(*outs))
+            check(err <= SMALL_NET_ATOL, f"{name} card vs CPU: {err:.2e}")
+            xb = torch.rand(1, H, W, channels, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.autocast("cuda", torch.bfloat16):
+                ms = cuda_ms(lambda: net(xb), reps=5)
+            peak = torch.cuda.max_memory_allocated()
+        print(f"  {name}: 2x64x96 fp32 card vs CPU within {err:.2e} (<= {SMALL_NET_ATOL:.0e}); "
+              f"B=1 {H}x{W} bf16 forward {ms:.3f} ms (5 back to back, median of 5), device "
+              f"memory high-water {peak / 2**30:.2f} GiB")
+    launches = (k1.launches, k1.backward_launches)
+    check(launches == (0, 0), f"export and networks launch no K1 (got {launches})")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase {time.perf_counter() - start_phase:.1f} s")
+
+
 def main() -> int:
     if not (ROOT / "deep_visual_slam_torch" / "csrc" / "reprojection.cu").is_file():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -1263,14 +1604,16 @@ def main() -> int:
     (slam_fwd, slam_bwd), kept = phase_slam(reprojection_loss)
     global_fwd, global_bwd = phase_global_ba(reprojection_loss, kept, card)
     trainer_fwd, trainer_bwd = phase_trainer(reprojection_loss, kept, card)
+    depth_fwd, depth_bwd = phase_depth(reprojection_loss, card)
+    phase_export(reprojection_loss, card)
     # Each main path ran with the counts set to 0 just before it.
     k1_row["launches_by_path"] = {
         "eval": eval_launches, "train": train_fwd, "stereo": stereo_fwd, "slam": slam_fwd,
-        "global_ba": global_fwd, "trainer": trainer_fwd,
+        "global_ba": global_fwd, "trainer": trainer_fwd, "depth": depth_fwd,
     }
     bwd_row["launches_by_path"] = {
         "eval": 0, "train": train_bwd, "stereo": stereo_bwd, "slam": slam_bwd,
-        "global_ba": global_bwd, "trainer": trainer_bwd,
+        "global_ba": global_bwd, "trainer": trainer_bwd, "depth": depth_bwd,
     }
     for row in (k1_row, bwd_row):
         row["launches"] = sum(row["launches_by_path"].values())

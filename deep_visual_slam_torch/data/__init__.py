@@ -1,6 +1,10 @@
 """Synthetic fixtures, snippet datasets, packed shards and the loader."""
 
-from deep_visual_slam_torch.data.base import SnippetDataset, color_jitter
+from deep_visual_slam_torch.data.base import (
+    DepthSampleDataset,
+    SnippetDataset,
+    color_jitter,
+)
 from deep_visual_slam_torch.data.loader import (
     ConcatDataset,
     DataLoader,
@@ -8,6 +12,7 @@ from deep_visual_slam_torch.data.loader import (
     collate,
     device_prefetch,
 )
+from deep_visual_slam_torch.data.nyu import DepthLoader, nyu_dataset
 from deep_visual_slam_torch.data.packed import (
     PackedSnippetDataset,
     list_packed_scenes,
@@ -28,10 +33,13 @@ from deep_visual_slam_torch.data.synthetic import (
 )
 
 __all__ = [
+    "DepthSampleDataset",
     "SnippetDataset",
     "color_jitter",
     "ConcatDataset",
     "DataLoader",
+    "DepthLoader",
+    "nyu_dataset",
     "VoDataLoader",
     "collate",
     "device_prefetch",

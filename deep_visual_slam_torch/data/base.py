@@ -1,4 +1,5 @@
-"""3-frame VO snippet sources (port of ``data/base.py``).
+"""3-frame VO snippet sources and supervised-depth samples (port of
+``data/base.py``).
 
 A snippet is (left, target, right) with random temporal gaps in
 [1, max_gap] (3 for training, 1 for evaluation), the 4-scale intrinsics
@@ -9,7 +10,8 @@ computes OpenCV's float RGB<->HSV formulas (H in degrees) in numpy, so the
 port needs no cv2.
 
 Frame IO belongs to subclasses (``data/packed.py``); the JAX package's path
-decoders need cv2 and are not ported.
+decoders (``read_image_rgb`` and the 16-bit PNG read) need an image decoder
+and wait for the path datasets (ROADMAP.md §1, item 1f).
 """
 
 from __future__ import annotations
@@ -194,3 +196,60 @@ class SnippetDataset:
             sample["gt_pose_target_to_right"] = (np.linalg.inv(p_t) @ p_r).astype(np.float32)
             sample["frame_indices"] = np.array([left_idx, t_i, r_i], np.int64)
         return sample
+
+
+class DepthSampleDataset:
+    """Supervised-depth samples: RGB and a depth map in sensor units
+    (millimetres for NYU) -> metres and the valid mask ``0 < d <
+    max_depth``, with a horizontal flip (p=0.5) then ColorJitter (p=0.5)
+    drawn in that order from the sample's generator in training.
+
+    Subclasses read sample ``idx`` in :meth:`_load`: the image [H, W, 3]
+    fp32 in [0, 1] and the raw depth [H, W], both at ``image_size``.
+    """
+
+    def __init__(
+        self,
+        num_samples: int,
+        image_size: Tuple[int, int],
+        max_depth: float = 10.0,
+        is_train: bool = True,
+        augment: bool = True,
+        depth_scale: float = 1000.0,
+    ):
+        self.num_samples = num_samples
+        self.image_size = image_size
+        self.max_depth = max_depth
+        self.is_train = is_train
+        self.augment = augment and is_train
+        self.depth_scale = depth_scale
+
+    def __len__(self) -> int:
+        return self.num_samples
+
+    def _load(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+        raise NotImplementedError(
+            "RGB/depth image files need an image decoder: they come with the "
+            "path datasets (ROADMAP.md §1, item 1f); subclass DepthSampleDataset "
+            "with a reader of your own"
+        )
+
+    def __getitem__(self, idx: int, rng: Optional[np.random.Generator] = None) -> Dict:
+        if rng is None:
+            rng = np.random.default_rng()
+        rgb, depth_raw = self._load(idx)
+        if rgb.shape[:2] != tuple(self.image_size) or depth_raw.shape != rgb.shape[:2]:
+            raise ValueError(
+                f"sample {idx}: image {rgb.shape} and depth {depth_raw.shape} "
+                f"are not at image_size {tuple(self.image_size)}"
+            )
+        rgb = np.asarray(rgb, np.float32)
+        depth = depth_raw.astype(np.float32) / self.depth_scale
+        if self.augment:
+            if rng.uniform() < 0.5:
+                rgb = rgb[:, ::-1].copy()
+                depth = depth[:, ::-1].copy()
+            if rng.uniform() < 0.5:
+                rgb = color_jitter(rgb[None], rng)[0]
+        valid = (depth > 0) & (depth < self.max_depth)
+        return {"image": rgb, "depth": depth[..., None], "valid_mask": valid[..., None]}

@@ -1,5 +1,6 @@
-"""Trajectory evaluation."""
+"""Trajectory and depth evaluation."""
 
+from deep_visual_slam_torch.eval.metrics import DepthMetrics
 from deep_visual_slam_torch.eval.traj_eval import EvalTrajectory
 from deep_visual_slam_torch.eval.trajectory import (
     accumulate_trajectory,
@@ -18,6 +19,7 @@ from deep_visual_slam_torch.eval.trajectory import (
 )
 
 __all__ = [
+    "DepthMetrics",
     "EvalTrajectory",
     "accumulate_trajectory",
     "ate_rmse",

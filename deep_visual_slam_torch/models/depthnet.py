@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from deep_visual_slam_torch.models.resnet import ResNetEncoder
+from deep_visual_slam_torch.models.resnet import BASE_CH_ENC, ResNetEncoder
 
 DEC_CHANNELS = (16, 32, 64, 128, 256)
 SCALES = (0, 1, 2, 3)
@@ -63,7 +63,7 @@ class DepthDecoder(nn.ModuleList):
 
     def __init__(
         self,
-        num_ch_enc=ResNetEncoder.num_ch_enc,
+        num_ch_enc=BASE_CH_ENC,
         predict_uncertainty: bool = False,
         generator: torch.Generator | None = None,
     ):

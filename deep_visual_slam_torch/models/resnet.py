@@ -16,7 +16,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-STAGE_SIZES = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
+STAGE_SIZES = {
+    18: (2, 2, 2, 2),
+    34: (3, 4, 6, 3),
+    50: (3, 4, 6, 3),
+    101: (3, 4, 23, 3),
+    152: (3, 8, 36, 3),
+}
+# The feature channels of the five maps of ResNet-18/34; deeper nets (the
+# bottleneck blocks) have four times as many past the stem.
+BASE_CH_ENC = (64, 64, 128, 256, 512)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -77,6 +86,8 @@ def _conv(inp: int, out: int, kernel: int, stride: int) -> nn.Conv2d:
 class BasicBlock(nn.Module):
     """Two 3x3 convs + identity shortcut (ResNet-18/34)."""
 
+    expansion = 1
+
     def __init__(self, inp: int, features: int, stride: int = 1):
         super().__init__()
         self.conv1 = _conv(inp, features, 3, stride)
@@ -96,6 +107,33 @@ class BasicBlock(nn.Module):
         return torch.relu(y + residual)
 
 
+class BottleneckBlock(nn.Module):
+    """1x1 -> 3x3 (stride) -> 1x1 (x4) with a projection shortcut where the
+    shape changes (ResNet-50/101/152, v1.5: the stride on the 3x3)."""
+
+    expansion = 4
+
+    def __init__(self, inp: int, features: int, stride: int = 1):
+        super().__init__()
+        out = features * self.expansion
+        self.conv1 = _conv(inp, features, 1, 1)
+        self.bn1 = BatchNorm2d(features)
+        self.conv2 = _conv(features, features, 3, stride)
+        self.bn2 = BatchNorm2d(features)
+        self.conv3 = _conv(features, out, 1, 1)
+        self.bn3 = BatchNorm2d(out)
+        self.downsample = None
+        if stride != 1 or inp != out:
+            self.downsample = nn.Sequential(_conv(inp, out, 1, stride), BatchNorm2d(out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = torch.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return torch.relu(y + residual)
+
+
 class _ResNet(nn.Module):
     """The torchvision-named trunk: conv1, bn1, maxpool, layer1..4."""
 
@@ -104,6 +142,7 @@ class _ResNet(nn.Module):
         self.conv1 = _conv(in_channels, 64, 7, 2)
         self.bn1 = BatchNorm2d(64)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
+        block = BasicBlock if num_layers <= 34 else BottleneckBlock
         inp = 64
         for stage, (width, n_blocks) in enumerate(
             zip((64, 128, 256, 512), STAGE_SIZES[num_layers])
@@ -111,8 +150,8 @@ class _ResNet(nn.Module):
             blocks = []
             for i in range(n_blocks):
                 stride = 2 if (stage > 0 and i == 0) else 1
-                blocks.append(BasicBlock(inp, width, stride))
-                inp = width
+                blocks.append(block(inp, width, stride))
+                inp = width * block.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
 
 
@@ -121,11 +160,10 @@ class ResNetEncoder(nn.Module):
 
     ``forward(x[B, 3*num_input_images, H, W])`` normalizes by
     ``(x - 0.45) / 0.225`` and returns the 5 NCHW feature maps at H/2 ..
-    H/32 with channels ``num_ch_enc``. ``generator`` seeds the
-    initialization (kaiming-normal fan-out convs, unit BatchNorm).
+    H/32 with channels ``num_ch_enc``: :data:`BASE_CH_ENC`, four times
+    past the stem above 34 layers. ``generator`` seeds the initialization
+    (kaiming-normal fan-out convs, unit BatchNorm).
     """
-
-    num_ch_enc = (64, 64, 128, 256, 512)
 
     def __init__(
         self,
@@ -135,10 +173,10 @@ class ResNetEncoder(nn.Module):
     ):
         super().__init__()
         if num_layers not in STAGE_SIZES:
-            raise ValueError(
-                f"ResNet-{num_layers} is not ported (BasicBlock depths "
-                f"{sorted(STAGE_SIZES)} only)"
-            )
+            raise ValueError(f"{num_layers} is not a valid resnet depth")
+        self.num_ch_enc = BASE_CH_ENC if num_layers <= 34 else (
+            (64,) + tuple(4 * c for c in BASE_CH_ENC[1:])
+        )
         self.encoder = _ResNet(num_layers, 3 * num_input_images)
         for m in self.modules():
             if isinstance(m, nn.Conv2d):

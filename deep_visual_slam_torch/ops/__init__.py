@@ -10,12 +10,20 @@ from deep_visual_slam_torch.ops.se3 import (
     se3_inv,
     se3_log,
 )
-from deep_visual_slam_torch.ops.depth import disp_to_depth
+from deep_visual_slam_torch.ops.depth import (
+    compute_depth_errors,
+    depth_to_disp,
+    disp_to_depth,
+    masked_depth_errors,
+    silog_loss,
+)
 from deep_visual_slam_torch.ops.camera import (
     pixel_grid,
     backproject,
     project,
     make_intrinsics,
+    scale_intrinsics,
+    intrinsics_pyramid,
 )
 from deep_visual_slam_torch.ops.warp import (
     grid_sample,
@@ -38,11 +46,17 @@ __all__ = [
     "se3_exp",
     "se3_inv",
     "se3_log",
+    "compute_depth_errors",
+    "depth_to_disp",
     "disp_to_depth",
+    "masked_depth_errors",
+    "silog_loss",
     "pixel_grid",
     "backproject",
     "project",
     "make_intrinsics",
+    "scale_intrinsics",
+    "intrinsics_pyramid",
     "grid_sample",
     "resize_bilinear",
     "upsample_nearest_2x",

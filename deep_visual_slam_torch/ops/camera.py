@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import List, Tuple
+
 import torch
 
 from deep_visual_slam_torch import resolve_device
@@ -79,3 +81,25 @@ def make_intrinsics(fx: float, fy: float, cx: float, cy: float, device=None) -> 
     K[0, 2] = cx
     K[1, 2] = cy
     return K
+
+
+def scale_intrinsics(K: torch.Tensor, scale_x: float, scale_y: float) -> torch.Tensor:
+    """A 4x4 intrinsic [..., 4, 4] for an image resized by (scale_x,
+    scale_y): the first row (fx, cx) times scale_x, the second (fy, cy)
+    times scale_y."""
+    K = K.float().clone()
+    K[..., 0, :] *= scale_x
+    K[..., 1, :] *= scale_y
+    return K
+
+
+def intrinsics_pyramid(
+    K: torch.Tensor, num_scales: int
+) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per-scale ``(K, inv_K)`` pairs, scale s halving the pixel rows s
+    times."""
+    out = []
+    for s in range(num_scales):
+        Ks = scale_intrinsics(K, 1.0 / (2**s), 1.0 / (2**s))
+        out.append((Ks, torch.linalg.inv(Ks)))
+    return out

@@ -3,7 +3,9 @@
     python3 -m deep_visual_slam_torch.profile_slice
 
 Runs ``make_vo_train_step`` and ``make_vo_eval_step`` at the
-``configs/vo.yaml`` size (B=16, 480x640, bf16), the trainer's step at the
+``configs/vo.yaml`` size (B=16, 480x640, bf16), ``make_depth_train_step``
+at the ``configs/depth.yaml`` size (B=64, 480x640, bf16, a
+``synthetic_depth_batch`` held on the card), the trainer's step at the
 ``configs/vo_fixture_640.yaml`` size (B=8, 480x640, bf16, device jitter,
 uint8 batches) fed by its loader from a packed scene (60 frames of a plane
 sweep, rendered on the card and packed under ``build/``) and from a batch
@@ -42,15 +44,19 @@ from deep_visual_slam_torch.data import (
     device_prefetch,
     pack_scene,
     smooth_texture,
+    synthetic_depth_batch,
     synthetic_multidepth_sequence,
     synthetic_slam_sequence,
     synthetic_vo_batch,
 )
 from deep_visual_slam_torch.slam import MonoVO, Networks
 from deep_visual_slam_torch.training import (
+    DepthLossConfig,
     TrainState,
     VOLossConfig,
+    init_depth_model,
     init_vo_models,
+    make_depth_train_step,
     make_vo_eval_step,
     make_vo_train_step,
 )
@@ -60,6 +66,7 @@ from deep_visual_slam_torch.utils.config import load_config
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = ROOT / "configs" / "vo.yaml"
 FIXTURE = ROOT / "configs" / "vo_fixture_640.yaml"
+DEPTH = ROOT / "configs" / "depth.yaml"
 # Kernel-name fragments of the groups whose device time is summed.
 GROUPS = {
     "K1 reprojection_loss_kernel": ("reprojection_loss_kernel",),
@@ -151,6 +158,7 @@ def main() -> None:
         *init_vo_models(train["seed"], predict_uncertainty=cfg.uncertainty), cfg, dtype
     )
     _profile(f"eval step {size}", lambda: step(batch, noise_gen), reps=5)
+    _profile_depth()
     _profile_trainer()
 
     frames = smooth_texture(np.random.default_rng(1), 2, train["img_h"], train["img_w"])
@@ -158,6 +166,20 @@ def main() -> None:
     nets = Networks(dtype=getattr(torch, train["compute_dtype"]), seed=0)
     _profile("Networks.step B=1", lambda: nets.step(frames[0], frames[1]), reps=20)
     _profile_slam(nets)
+
+
+def _profile_depth() -> None:
+    config = load_config(DEPTH)
+    t = config["Train"]
+    model = init_depth_model(t["seed"])
+    state = TrainState.create(model, None, t["init_lr"], total_steps=100, beta1=t["beta1"],
+                              weight_decay=t["weight_decay"])
+    step = make_depth_train_step(model, DepthLossConfig.from_config(config),
+                                 getattr(torch, t["compute_dtype"]))
+    batch = synthetic_depth_batch(t["seed"], t["batch_size"], t["img_h"], t["img_w"],
+                                  t["max_depth"])
+    _profile(f"depth train step B={t['batch_size']} {t['img_h']}x{t['img_w']} "
+             f"{t['compute_dtype']} (configs/depth.yaml)", lambda: step(state, batch), reps=5)
 
 
 def _profile_trainer() -> None:

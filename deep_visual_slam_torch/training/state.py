@@ -1,7 +1,8 @@
 """Train state and optimizer (port of ``training/state.py``).
 
-One Adam (or decoupled AdamW) over both networks' parameters, as in the
-reference's single optimizer over depth and pose. The learning rate follows
+One Adam (or decoupled AdamW) over the networks' parameters: DepthNet and
+PoseNet for VO, as in the reference's single optimizer over depth and
+pose, or DepthNet alone for supervised depth. The learning rate follows
 the polynomial decay per update, evaluated like ``optax.polynomial_schedule``
 at the update count before the increment. Gradient clipping by the global
 norm, where asked for, runs before the update as ``optax.clip_by_global_norm``
@@ -50,11 +51,12 @@ def make_optimizer(
 
 @dataclass
 class TrainState:
-    """The two networks, their one optimizer, the schedule and the count of
-    updates applied (``step``)."""
+    """The networks (``pose_model`` is ``None`` for supervised depth), their
+    one optimizer, the schedule and the count of updates applied
+    (``step``)."""
 
     depth_model: nn.Module
-    pose_model: nn.Module
+    pose_model: nn.Module | None
     optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]
     max_grad_norm: float | None = None
@@ -64,7 +66,7 @@ class TrainState:
     def create(
         cls,
         depth_model: nn.Module,
-        pose_model: nn.Module,
+        pose_model: nn.Module | None,
         init_lr: float,
         total_steps: int,
         beta1: float = 0.9,
@@ -73,7 +75,9 @@ class TrainState:
         end_lr: float = 0.0,
         max_grad_norm: float | None = None,
     ) -> "TrainState":
-        params = [*depth_model.parameters(), *pose_model.parameters()]
+        params = list(depth_model.parameters())
+        if pose_model is not None:
+            params += list(pose_model.parameters())
         return cls(
             depth_model,
             pose_model,
@@ -104,6 +108,13 @@ class TrainState:
         self.optimizer.step()
         self.step += 1
         return norm
+
+
+def init_depth_model(seed: int) -> DepthNet:
+    """The supervised-depth ResNet-18 DepthNet with weights drawn from a
+    generator seeded with ``seed`` (on the CPU; the steps move it to its
+    device)."""
+    return DepthNet(generator=torch.Generator().manual_seed(seed))
 
 
 def init_vo_models(

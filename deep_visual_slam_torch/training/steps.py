@@ -1,11 +1,13 @@
-"""VO train, stereo train and eval steps (port of ``training/steps.py``).
+"""VO train, stereo train and eval steps, and the supervised-depth train
+and eval steps (port of ``training/steps.py``).
 
 The networks run under ``torch.autocast`` in the compute dtype (bf16 in
 ``configs/vo.yaml``); images, the warp and the loss stay fp32, as in the JAX
 package. Every reprojection map goes through kernel K1
 (``ops/photometric_cuda.py``) on the card: per mono train step 10 forward
 launches and 8 backward launches (the two identity maps carry no gradient),
-per stereo step 5 and 4, per eval step 10 forward launches.
+per stereo step 5 and 4, per eval step 10 forward launches. The depth steps
+(SILog and smoothness) launch none.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from torch.utils.checkpoint import checkpoint
 
 from deep_visual_slam_torch import resolve_device
 from deep_visual_slam_torch.models.resnet import frozen_running_stats
-from deep_visual_slam_torch.training import vo_learner
+from deep_visual_slam_torch.training import depth_learner, vo_learner
 from deep_visual_slam_torch.training.augment import batch_snippet_jitter
 from deep_visual_slam_torch.training.state import TrainState
 
@@ -222,5 +224,58 @@ def make_vo_eval_step(
             "color_right_0": outputs[("color", 1, 0)],
         }
         return keep, losses
+
+    return eval_step
+
+
+def make_depth_train_step(
+    depth_model: torch.nn.Module,
+    cfg: depth_learner.DepthLossConfig,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    device=None,
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Returns ``train_step(state, batch) -> losses`` (``loss``, ``silog``,
+    ``smooth``): one optimizer update of ``state`` (a :class:`TrainState`
+    over ``depth_model`` alone) on a batch of ``image``, ``depth`` and
+    ``valid_mask``. The model moves to ``device`` (``None`` -> CUDA) in
+    train mode (batch statistics, the running statistics moved by flax's
+    rule); the batch is copied there per call. Autocast covers the network
+    only; the loss is fp32."""
+    device = resolve_device(device)
+    depth_model.to(device).train()
+    depth_net = _network(depth_model, device, compute_dtype)
+
+    def train_step(state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        state.optimizer.zero_grad(set_to_none=True)
+        total, losses, _ = depth_learner.forward_step(
+            depth_net, _to_device(batch, device), cfg
+        )
+        total.backward()
+        state.apply_gradients()
+        return {k: v.detach() for k, v in losses.items()}
+
+    return train_step
+
+
+def make_depth_eval_step(
+    depth_model: torch.nn.Module,
+    cfg: depth_learner.DepthLossConfig,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    device=None,
+) -> Callable[..., Tuple[Dict[str, torch.Tensor], torch.Tensor]]:
+    """Returns ``eval_step(batch) -> (losses, depth)``: the losses and the
+    predicted depth at scale 0 ([B, H, W, 1] fp32) with frozen BatchNorm
+    and no gradient. The model moves to ``device`` (``None`` -> CUDA) in
+    eval mode."""
+    device = resolve_device(device)
+    depth_model.to(device).eval()
+    depth_net = _network(depth_model, device, compute_dtype)
+
+    def eval_step(batch: Dict[str, Any]):
+        with torch.inference_mode():
+            _, losses, preds = depth_learner.forward_step(
+                depth_net, _to_device(batch, device), cfg
+            )
+        return losses, preds[0]
 
     return eval_step

@@ -2,7 +2,8 @@
 the JAX package writes orbax directories).
 
 A checkpoint is one ``torch.save`` file per step, ``ckpt_<step>.pt``,
-holding both networks' ``state_dict``s, the optimizer's ``state_dict``, the
+holding the networks' ``state_dict``s (``depth``, and ``pose`` for VO), the
+optimizer's ``state_dict``, the
 update count ``step`` and a JSON metadata string (epoch, step in the epoch,
 the trainer's generator state). It is written under a temporary name and
 renamed, so a run killed while saving leaves the previous checkpoint whole;
@@ -53,13 +54,15 @@ class CheckpointManager:
         same step), then drop all but the newest ``max_to_keep``. Returns
         the file's path."""
         path = _path(self.directory, step)
-        _atomic_save({
+        tree = {
             "depth": state.depth_model.state_dict(),
-            "pose": state.pose_model.state_dict(),
             "optimizer": state.optimizer.state_dict(),
             "step": int(state.step),
             "metadata": json.dumps(metadata or {}),
-        }, path)
+        }
+        if state.pose_model is not None:
+            tree["pose"] = state.pose_model.state_dict()
+        _atomic_save(tree, path)
         for old in _steps(self.directory)[: -self.max_to_keep]:
             os.remove(_path(self.directory, old))
         return path
@@ -77,7 +80,8 @@ class CheckpointManager:
             return state, None, None
         tree = torch.load(_path(self.directory, step), map_location="cpu", weights_only=True)
         state.depth_model.load_state_dict(tree["depth"])
-        state.pose_model.load_state_dict(tree["pose"])
+        if state.pose_model is not None:
+            state.pose_model.load_state_dict(tree["pose"])
         state.optimizer.load_state_dict(tree["optimizer"])
         state.step = int(tree["step"])
         return state, json.loads(tree["metadata"]), step

@@ -1,4 +1,5 @@
-"""Pretrained weights for the VO trainer (port of ``utils/pretrained.py``).
+"""Pretrained weights for the VO and supervised-depth trainers (port of
+``utils/pretrained.py``).
 
 The port's parameter names are the reference torch ``state_dict``'s, so
 this is ``load_state_dict`` of files the user supplies; nothing is
@@ -9,9 +10,10 @@ downloaded. Config keys (under ``Train``, null by default)::
       depth: weights/vo/depth_net_epoch_30.pth          # full DepthNet
       pose:  weights/vo/pose_net_epoch_30.pth           # full PoseNet
 
-The encoder goes in first (under ``encoder.encoder.`` of both networks; the
+The encoder goes in first (under ``encoder.encoder.`` of each network; the
 pose encoder's 3-channel conv1 is tiled over its two images and divided by
-two), the full networks then override it. A file may wrap its weights in a
+two), the full networks then override it. The depth trainer reads the
+encoder and ``pretrained_weights.depth`` only. A file may wrap its weights in a
 ``"state_dict"`` entry and carry torch.compile's ``_orig_mod.`` prefixes.
 Every graft must match the model's keys and shapes exactly.
 """
@@ -102,4 +104,20 @@ def apply_vo_pretrained(depth_model: nn.Module, pose_model: nn.Module, config: D
         if pw.get(name):
             _graft(model, load_state_dict_file(pw[name]), "", pw[name])
             report.append(f"pretrained {name} net: {pw[name]}")
+    return report
+
+
+def apply_depth_pretrained(depth_model: nn.Module, config: Dict) -> List[str]:
+    """The same for the supervised-depth trainer's DepthNet alone."""
+    t = config.get("Train", {})
+    report: List[str] = []
+    enc_path = t.get("pretrained_encoder")
+    if enc_path:
+        sd = load_state_dict_file(enc_path)
+        _graft(depth_model, _encoder_weights(sd, 1), _ENCODER, enc_path)
+        report.append(f"pretrained encoder: {enc_path}")
+    pw = t.get("pretrained_weights") or {}
+    if pw.get("depth"):
+        _graft(depth_model, load_state_dict_file(pw["depth"]), "", pw["depth"])
+        report.append(f"pretrained depth net: {pw['depth']}")
     return report

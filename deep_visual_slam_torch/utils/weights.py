@@ -1,7 +1,8 @@
 """Carry JAX variables into the port's ``state_dict``s.
 
 The inverse of the JAX package's ``utils/torch_weights.py``
-(``convert_depthnet``, ``convert_posenet``): the input is the JAX
+(``convert_depthnet``, ``convert_posenet``), plus ``TwoEncoderPoseNet``,
+which the JAX package has no converter for: the input is the JAX
 ``{"params", "batch_stats"}`` tree as nested dicts of numpy arrays, the
 output the port's ``state_dict`` in the reference torch naming. Conv
 kernels go from ``[kh, kw, I, O]`` to ``[O, I, kh, kw]``; BatchNorm
@@ -42,23 +43,27 @@ def _bn(out: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
 
 
 def _encoder(out: Dict, params: Mapping, stats: Mapping, num_layers: int) -> None:
-    """JAX ``ResNetEncoder`` variables -> ``encoder.encoder.*``."""
+    """JAX ``ResNetEncoder`` variables -> ``encoder.encoder.*``: basic
+    blocks (two convs) up to 34 layers, bottlenecks (three) above; the
+    projection shortcut is the block's next conv and BatchNorm."""
     pre = "encoder.encoder"
     _conv(out, f"{pre}.conv1", params["Conv_0"])
     _bn(out, f"{pre}.bn1", params["BatchNorm_0"], stats["BatchNorm_0"])
+    block, n_convs = ("BasicBlock", 2) if num_layers <= 34 else ("BottleneckBlock", 3)
     block_i = 0
     for stage, n_blocks in enumerate(STAGE_SIZES[num_layers]):
         for b in range(n_blocks):
-            name = f"BasicBlock_{block_i}"
+            name = f"{block}_{block_i}"
             bp, bs = params[name], stats[name]
             t = f"{pre}.layer{stage + 1}.{b}"
-            for ci in range(2):
+            for ci in range(n_convs):
                 _conv(out, f"{t}.conv{ci + 1}", bp[f"Conv_{ci}"])
                 _bn(out, f"{t}.bn{ci + 1}", bp[f"BatchNorm_{ci}"],
                     bs[f"BatchNorm_{ci}"])
-            if "Conv_2" in bp:
-                _conv(out, f"{t}.downsample.0", bp["Conv_2"])
-                _bn(out, f"{t}.downsample.1", bp["BatchNorm_2"], bs["BatchNorm_2"])
+            if f"Conv_{n_convs}" in bp:
+                _conv(out, f"{t}.downsample.0", bp[f"Conv_{n_convs}"])
+                _bn(out, f"{t}.downsample.1", bp[f"BatchNorm_{n_convs}"],
+                    bs[f"BatchNorm_{n_convs}"])
             block_i += 1
 
 
@@ -88,11 +93,17 @@ def depthnet_from_jax(variables: Mapping, num_layers: int = 18) -> Dict[str, tor
 
 
 def posenet_from_jax(variables: Mapping, num_layers: int = 18) -> Dict[str, torch.Tensor]:
-    """JAX ``PoseNet`` variables -> the port's ``PoseNet`` ``state_dict``
-    (``net.0`` squeeze, ``net.1``/``net.2`` pose convs, ``net.3`` output)."""
+    """JAX ``PoseNet`` or ``TwoEncoderPoseNet`` variables -> the port's
+    ``state_dict`` of the same class (``net.0`` squeeze, ``net.1``/``net.2``
+    pose convs, ``net.3`` output): the two share their tree's names."""
     params, stats = variables["params"], variables["batch_stats"]
     out: Dict[str, torch.Tensor] = {}
     _encoder(out, params["encoder"], stats["encoder"], num_layers)
     for i, name in enumerate(("squeeze", "pose_0", "pose_1", "pose_2")):
         _conv(out, f"net.{i}", params[name])
     return out
+
+
+# TwoEncoderPoseNet's tree (one shared ``encoder``, ``squeeze``,
+# ``pose_0..2``) has PoseNet's names, and its port the same ``net.0..3``.
+two_encoder_posenet_from_jax = posenet_from_jax
