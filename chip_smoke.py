@@ -89,6 +89,26 @@ the run with a non-zero exit code and no result line:
    on the same frames, ms/frame of each; the ResNet-50 DepthNet and
    ``TwoEncoderPoseNet`` on the card against the CPU at 2x64x96 fp32 and one
    480x640 bf16 forward each for its time and memory.
+12. RAFT, FlowPoseNet and the Redwood evaluation, fp32 (TF32 off). (a)
+   Kernel K2, the on-demand windowed correlation lookup, against its plain
+   version and the dense route at SmallRAFT's B=16 [16, 60, 80, 128], r=3,
+   BasicRAFT's B=1 D=256, r=4, and a case whose fourth level is 1x1, with
+   targets up to 12 px off the grid: max abs difference, ms of K2 (with
+   those targets, a smooth flow and zero flow), of the plain version, of
+   the dense route and of its lookup alone, the bound; at SmallRAFT's shape
+   also fmap1's rows off their 16-byte alignment (the kernel's scalar
+   form). (b) SmallRAFT and BasicRAFT (``memory_efficient``) on the card
+   against the CPU at 128x160, 3 iterations. (c) SmallRAFT at 480x640, 12
+   iterations, B=1 and B=16, and BasicRAFT at B=1, dense and by the card's
+   default route (K2): the two routes' final flows, ms per forward, K2
+   launches, peak memory. (d) The Redwood
+   evaluator over two 480x640 scenes of 40 of phase 7b's frames (served from
+   memory, poses as column-major PoseGraphs): ``PoseNet`` with phase 9's
+   trained weights through ``eval_redwood_cli.evaluate_redwood``, and
+   ``FlowPoseNet`` (SmallRAFT through K2, 12 iterations) through
+   ``make_pose_fn`` at B=16: finite results, the CSV's columns, seconds a
+   scene and pairs/s; then one 96x128 scene on the card against the CPU,
+   and a fault (the weights rounded to bf16) that the comparison must see.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
@@ -96,7 +116,9 @@ last is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -282,6 +304,42 @@ DEPTH_CLI_RTOL = 1e-6
 EXPORT_SEED = 11
 EXPORT_DEPTH_RTOL, EXPORT_T_ATOL = 1e-4, 1e-5
 SMALL_NET_ATOL = 1e-4
+# Phase 12: kernel K2 against the plain lazy lookup and the dense route, fp32
+# both: the kernel dots fmap1 with the integer-grid pixels and blends the
+# dots, the plain version blends fmap2 and then dots, in other orders of
+# summation: a few ulp of correlations up to ~5 (4.6e-5 measured at D = 128
+# on an NVIDIA H100 80GB HBM3, 700 W); a transposed or shifted tap is off by
+# O(1).
+K2_TOL = 1e-4
+# RAFT on the card against the CPU at 128x160 fp32, 3 iterations (TF32 off):
+# cuDNN sums the convolutions in other orders; the CPU port is held to JAX
+# within 1e-4 px (tests/test_torch_raft.py).
+RAFT_CARD_ATOL = 1e-3
+# The dense and memory-efficient routes' final flows at 480x640 after 12
+# iterations: the lookups differ by rounding and the GRU carries it along;
+# the JAX package holds its two routes at 5e-3 px (tests/test_raft.py:89).
+RAFT_ROUTE_ATOL = 5e-3
+# The Redwood evaluator on one 96x128 scene, the card against the CPU, fp32
+# (the card's default lookup, K2, against the CPU's dense one: 1.6e-9 apart
+# in the poses on the CPU). The pose networks' relative poses [4, 4] within
+# 1e-6: the networks sum their convolutions in other orders, and the
+# rotation entries near 1 round to fp32 (6.0e-8 and 8.2e-10 measured in two
+# runs on an NVIDIA H100 80GB HBM3, 700 W). The metrics computed from the
+# positions (ATE, RPE translation, scales, KITTI translation) within 1e-4
+# relative (4.7e-7 in the run that printed them all). The rotation errors
+# arccos((tr R - 1) / 2) are held through the poses: near identity their
+# slope has no bound, and a change e of the rotation entries moves them by
+# up to sqrt(6 e) rad, so they are held to what the pose tolerance allows
+# (0.14 deg; 1.4e-3 deg measured). A fault that the comparison must see,
+# which the phase runs on the CPU: the network's weights rounded to bf16
+# (7.5e-6 and 1.8e-5 in the poses, 4.6e-4 and 3.4e-3 relative in the
+# position metrics, with random weights at this size on the CPU).
+REDWOOD_POSE_ATOL = 1e-6
+REDWOOD_METRIC_RTOL = 1e-4
+REDWOOD_ROT_ATOL_DEG = math.degrees(math.sqrt(6 * REDWOOD_POSE_ATOL))
+ROTATION_KEYS = ("rpe_rot_mean_deg", "rpe_rot_median_deg", "rpe_rot_std_deg",
+                 "kitti_r_rel_deg_per_100m")
+REDWOOD_FRAMES = 40
 
 
 def check(ok: bool, what: str) -> None:
@@ -1281,6 +1339,10 @@ def phase_trainer(k1, kept, card):
         f"to back between CUDA events, median of 5): the loader's share "
         f"{max(iter_ms - resident_ms, 0.0) / iter_ms:.1%}"
     )
+    # Phase 12's Redwood evaluation reads the trained networks back.
+    kept["vo_weights"] = {name: {k: v.detach().cpu() for k, v in model.state_dict().items()}
+                          for name, model in (("depth", a.state.depth_model),
+                                              ("pose", a.state.pose_model))}
     shutil.rmtree(root, ignore_errors=True)
     print(f"  phase {time.perf_counter() - start_phase:.1f} s")
     return launches
@@ -1578,6 +1640,348 @@ def phase_export(k1, card):
     print(f"  phase {time.perf_counter() - start_phase:.1f} s")
 
 
+def _k2_case(B, H, W, D, radius, seed):
+    """Kernel K2's inputs at a RAFT shape: fmap1, the 4 pooled fmap2 levels,
+    fmap2 and ``coords_grid + U(-12, 12)``, so that taps leave the map."""
+    from deep_visual_slam_torch.models.raft import coords_grid
+    from deep_visual_slam_torch.ops.correlation import build_corr_pyramid
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    f1 = torch.randn((B, H, W, D), device="cuda", generator=g)
+    f2 = torch.randn((B, H, W, D), device="cuda", generator=g)
+    coords = coords_grid(B, H, W, "cuda") + 24 * torch.rand(
+        (B, H, W, 2), device="cuda", generator=g) - 12
+    return f1, f2, build_corr_pyramid(f1, f2, 4, memory_efficient=True)[2], coords
+
+
+def k2_work(f1, levels, coords, radius):
+    """(bytes, fp32 operations) of the lookup on these inputs: each input
+    read once and the output written once; the dots of each window's
+    in-range integer-grid pixels (2D each) and 7 a tap for the blend."""
+    B, H1, W1, D = f1.shape
+    taps = (2 * radius + 1) ** 2
+    nbytes = 4 * (f1.numel() + coords.numel() + sum(t.numel() for t in levels)
+                  + B * H1 * W1 * len(levels) * taps)
+    side = torch.arange(-radius, radius + 2, device=coords.device)
+    dots = 0
+    for i, level in enumerate(levels):
+        hl, wl = level.shape[1:3]
+        c = coords / 2**i
+        counts = []
+        for axis, n in ((0, wl), (1, hl)):
+            if n == 1:  # every tap on index 0: in range
+                counts.append(torch.full(c.shape[:3], float(side.numel()), device=c.device))
+            else:
+                idx = torch.floor(c[..., axis]).unsqueeze(-1) + side
+                counts.append(((idx >= 0) & (idx < n)).sum(-1).float())
+        dots += int((counts[0] * counts[1]).sum().item())
+    ops = 2 * D * dots + 7 * B * H1 * W1 * len(levels) * taps
+    return nbytes, ops
+
+
+def _redwood_tree(root, scenes):
+    """A Redwood test fold under ``root``: per scene an ``image`` folder of
+    empty placeholder files (the frames are served from memory) and the
+    camera-to-world poses as a column-major PoseGraph. Returns the
+    path -> uint8 frame map for ``read_image``."""
+    served = {}
+    for name, (frames, gt_cw) in scenes.items():
+        scene_dir = root / "test" / name
+        (scene_dir / "image").mkdir(parents=True)
+        nodes = []
+        for i, (frame, T_cw) in enumerate(zip(frames, gt_cw)):
+            path = scene_dir / "image" / f"{i:06d}.jpg"
+            path.touch()
+            served[str(path)] = frame
+            T_wc = np.linalg.inv(np.asarray(T_cw, np.float64))
+            nodes.append({"pose": T_wc.flatten(order="F").tolist()})
+        (scene_dir / f"{name}.json").write_text(json.dumps({"nodes": nodes}))
+
+    def read_image(path, height, width):
+        frame = served[path]
+        check(frame.shape == (height, width, 3) and frame.dtype == np.uint8,
+              f"served frame {frame.shape} {frame.dtype}")
+        return frame
+
+    return read_image
+
+
+def _recorded(pose_fn, store):
+    """``pose_fn``, keeping each of its outputs in ``store``."""
+    def fn(pairs):
+        store.append(pose_fn(pairs))
+        return store[-1]
+    return fn
+
+
+def _redwood_diffs(got, want, poses_got, poses_want):
+    """How two runs of the evaluator (lists of result dicts over the same
+    scenes, and their relative poses) differ: the poses' max abs
+    difference, (key, value) of the largest relative difference over the
+    keys computed from positions, and (key, value) of the largest absolute
+    difference over :data:`ROTATION_KEYS`."""
+    check([r.keys() for r in got] == [r.keys() for r in want], "the same result keys")
+    rel, rot = [], []
+    for a, b in zip(got, want):
+        for k, v in b.items():
+            if k in ROTATION_KEYS:
+                rot.append((k, abs(a[k] - v)))
+            elif k != "scene":
+                rel.append((k, abs(a[k] - v) / max(abs(v), 1e-9)))
+    pose = float(np.abs(np.asarray(poses_got) - np.asarray(poses_want)).max())
+    return pose, max(rel, key=lambda d: d[1]), max(rot, key=lambda d: d[1])
+
+
+def _redwood_agree(pose, rel, rot) -> bool:
+    return (pose <= REDWOOD_POSE_ATOL and rel[1] <= REDWOOD_METRIC_RTOL
+            and rot[1] <= REDWOOD_ROT_ATOL_DEG)
+
+
+def _describe(pose, rel, rot) -> str:
+    return (f"poses within {pose:.2e}, position metrics within {rel[1]:.2e} relative (the "
+            f"largest {rel[0]}), rotation errors within {rot[1]:.2e} deg (the largest {rot[0]})")
+
+
+def phase_raft(k1, rates, card, kept):
+    from deep_visual_slam_torch.data import synthetic_multidepth_sequence
+    from deep_visual_slam_torch.eval.redwood_eval import (
+        CSV_COLUMNS,
+        RedwoodEvaluator,
+        make_pose_fn,
+    )
+    from deep_visual_slam_torch.eval_redwood_cli import evaluate_redwood, load_pose_weights
+    from deep_visual_slam_torch.models import BasicRAFT, FlowPoseNet, PoseNet, SmallRAFT
+    from deep_visual_slam_torch.models.raft import coords_grid
+    from deep_visual_slam_torch.ops import correlation
+    from deep_visual_slam_torch.ops import correlation_cuda as k2
+    from deep_visual_slam_torch.utils.checkpoint import save_params_only
+
+    print("phase 12: RAFT, FlowPoseNet and the Redwood evaluation")
+    start_phase = time.perf_counter()
+    root = ROOT / "build" / "phase12"
+    shutil.rmtree(root, ignore_errors=True)
+    lookup = k2.windowed_correlation
+
+    # (a) K2 against the plain lazy lookup and the dense route.
+    max_err, row = 0.0, None
+    for label, shape in (("SmallRAFT B=16", (16, 60, 80, 128, 3)),
+                         ("BasicRAFT B=1", (1, 60, 80, 256, 4)),
+                         ("a 1x1 fourth level", (2, 9, 13, 16, 3))):
+        B, H1, W1, D, r = shape
+        f1, f2, levels, coords = _k2_case(B, H1, W1, D, r, seed=len(label))
+        with torch.no_grad():
+            out = lookup(f1, levels, coords, r)
+            torch.cuda.synchronize()
+            plain = correlation.lookup_lazy_plain(f1, levels, coords, r)
+            dense = correlation.corr_pyramid_lookup(
+                correlation.build_corr_pyramid(f1, f2, 4), coords, r)
+        err = (out - plain).abs().max().item()
+        err_dense = (out - dense).abs().max().item()
+        check(err <= K2_TOL and err_dense <= K2_TOL,
+              f"K2 {label}: {err:.2e} from the plain lookup, {err_dense:.2e} from the dense")
+        max_err = max(max_err, err, err_dense)
+        sizes = ", ".join(f"{t.shape[1]}x{t.shape[2]}" for t in levels)
+        msg = (f"  (a) {label} [{B},{H1},{W1},{D}] r={r}, levels {sizes}: max |K2 - plain| "
+               f"{err:.3e}, |K2 - dense| {err_dense:.3e} (tolerance {K2_TOL:.0e}; values up "
+               f"to {plain.abs().max().item():.2f})")
+        if B == 1 or B == 16:
+            with torch.no_grad():
+                ms = cuda_ms(lambda: lookup(f1, levels, coords, r), 20)
+                plain_ms = cuda_ms(
+                    lambda: correlation.lookup_lazy_plain(f1, levels, coords, r), 2)
+                dense_ms = cuda_ms(lambda: correlation.corr_pyramid_lookup(
+                    correlation.build_corr_pyramid(f1, f2, 4), coords, r), 5)
+                pyramid = correlation.build_corr_pyramid(f1, f2, 4)
+                lookup_ms = cuda_ms(
+                    lambda: correlation.corr_pyramid_lookup(pyramid, coords, r), 5)
+                del pyramid
+                # A smooth flow (one shift for every pixel), as RAFT's
+                # targets are, and zero flow: neighbouring windows overlap.
+                grid = coords_grid(B, H1, W1, "cuda")
+                smooth_ms, zero_ms = (
+                    cuda_ms(lambda c=c: lookup(f1, levels, c, r), 20)
+                    for c in (grid + torch.tensor([3.3, -2.7], device="cuda"), grid))
+            nbytes, ops = k2_work(f1, levels, coords, r)
+            bytes_ms, ops_ms = nbytes / rates[0] * 1e3, ops / rates[1] * 1e3
+            msg += (f"; {card}: K2 {ms:.4f} ms ({smooth_ms:.4f} ms with a smooth flow, "
+                    f"{zero_ms:.4f} ms with zero flow), plain {plain_ms:.4f} ms, dense route "
+                    f"(pyramid and lookup) {dense_ms:.4f} ms, its lookup alone {lookup_ms:.4f} "
+                    f"ms (20, 2, 5 and 5 calls back to back between CUDA events, median of 5); "
+                    f"bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes / 1e6:.1f} MB at "
+                    f"{rates[0] / 1e12:.2f} TB/s takes {bytes_ms:.4f}; {ops / 1e9:.3f} GFLOP "
+                    f"fp32 {ops_ms:.4f})")
+            if B == 16:
+                # fmap1's rows one float off their 16-byte alignment: the
+                # kernel's scalar form.
+                f1_off = torch.empty(f1.numel() + 1, device="cuda")[1:].view(f1.shape)
+                f1_off.copy_(f1)
+                with torch.no_grad():
+                    err_off = (lookup(f1_off, levels, coords, r) - plain).abs().max().item()
+                    off_ms = cuda_ms(lambda: lookup(f1_off, levels, coords, r), 20)
+                check(err_off <= K2_TOL, f"K2 {label}, unaligned rows: {err_off:.2e}")
+                max_err = max(max_err, err_off)
+                msg += (f"; fmap1's rows off their 16-byte alignment (the scalar form): "
+                        f"max |K2 - plain| {err_off:.3e}, {off_ms:.4f} ms")
+                del f1_off
+                row = {
+                    "name": "windowed_correlation",
+                    "route": "cuda",
+                    "source": "deep_visual_slam_torch/csrc/correlation.cu",
+                    "replaces": "deep_visual_slam_tpu/ops/pallas/correlation.py:111",
+                    "launches": None,
+                    "max_abs_err": None,
+                    "ms": ms,
+                    "plain_ms": plain_ms,
+                    "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                    "library_ms": dense_ms,
+                }
+        print(msg)
+        del f1, f2, levels, coords, out, plain, dense
+    row["max_abs_err"] = max_err
+    torch.cuda.empty_cache()
+
+    gen = np.random.default_rng(12)
+
+    # (b) SmallRAFT and BasicRAFT, the card against the CPU, 128x160 fp32.
+    x1, x2 = (torch.from_numpy(gen.uniform(size=(1, 128, 160, 3)).astype(np.float32))
+              for _ in range(2))
+    for name, make in (("SmallRAFT", SmallRAFT), ("BasicRAFT", BasicRAFT)):
+        model = _randomize_bn(make(iters=3, memory_efficient=True,
+                                   generator=torch.Generator().manual_seed(1)), 2).eval()
+        with torch.no_grad():
+            cpu = model(x1, x2)
+            gpu = model.to("cuda")(x1.cuda(), x2.cuda())
+        err = max((a - b.cpu()).abs().max().item() for a, b in zip(cpu, gpu))
+        check(err <= RAFT_CARD_ATOL, f"{name} card against CPU: {err:.2e}")
+        print(f"  (b) {name} 1x128x160 fp32, iters=3, memory_efficient: every flow on the card "
+              f"within {err:.2e} px of the CPU's (tolerance {RAFT_CARD_ATOL:.0e}; flows up to "
+              f"{max(f.abs().max().item() for f in cpu):.2f} px)")
+
+    # (c) RAFT at 480x640, 12 iterations, dense and by the card's default
+    # route (K2): the RAFT main path, its counts set to 0 just before it.
+    k1.launches = k1.backward_launches = 0
+    lookup.launches = 0
+    H, W = 480, 640
+    frames = kept["seeds"][100]["frames"]
+    for name, make, batches in (("SmallRAFT", SmallRAFT, (1, 16)), ("BasicRAFT", BasicRAFT, (1,))):
+        dense = _randomize_bn(make(iters=12, memory_efficient=False,
+                                   generator=torch.Generator().manual_seed(3)), 4).eval().cuda()
+        lazy = make(iters=12).eval().cuda()  # the card's default: K2
+        lazy.load_state_dict(dense.state_dict())
+        for B in batches:
+            a = torch.from_numpy(frames[:B].astype(np.float32)).cuda()
+            b = torch.from_numpy(frames[1 : B + 1].astype(np.float32)).cuda()
+            flows, stats = {}, []
+            for route, model in (("dense", dense), ("memory_efficient", lazy)):
+                before = lookup.launches
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                with torch.inference_mode():
+                    flows[route] = model(a, b)[-1]
+                    ms = cuda_ms(lambda: model(a, b), 2)
+                peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+                stats.append(f"{route} {ms:.2f} ms/forward ({1e3 * B / ms:.1f} pairs/s), "
+                             f"{lookup.launches - before} K2 launches, peak "
+                             f"{peak:.2f} GiB above the inputs")
+            f_d, f_l = flows["dense"], flows["memory_efficient"]
+            check(bool(torch.isfinite(f_d).all()) and f_d.shape == (B, H, W, 2),
+                  f"{name} B={B} flows finite, [B, H, W, 2]")
+            err = (f_d - f_l).abs().max().item()
+            check(err <= RAFT_ROUTE_ATOL, f"{name} B={B}: the two routes within {err:.2e}")
+            print(f"  (c) {card}: {name} B={B} {H}x{W} fp32, 12 iterations, on phase 7b's "
+                  f"frames: final flows of the two routes within {err:.2e} px (tolerance "
+                  f"{RAFT_ROUTE_ATOL:.0e}; flows up to {f_d.abs().max().item():.2f} px); "
+                  + "; ".join(stats) + " (2 back to back between CUDA events, median of 5)")
+            del a, b, flows, f_d, f_l
+        del dense, lazy
+        torch.cuda.empty_cache()
+    raft_launches = lookup.launches
+    check(raft_launches > 0, "K2 launched on the RAFT path")
+    check((k1.launches, k1.backward_launches) == (0, 0), "RAFT launches no K1")
+
+    # (d) The Redwood evaluator: PoseNet through the CLI's function, and
+    # FlowPoseNet (RAFT through K2, the card's default) through make_pose_fn,
+    # over two 480x640 scenes of 40 frames of phase 7b's renders: the
+    # Redwood main path, its counts set to 0 just before it.
+    k1.launches = k1.backward_launches = 0
+    lookup.launches = 0
+    scenes = {name: ((np.clip(kept["seeds"][seed]["frames"][:REDWOOD_FRAMES], 0, 1) * 255)
+                     .round().astype(np.uint8), kept["seeds"][seed]["gt"][:REDWOOD_FRAMES])
+              for name, seed in (("apartment", 100), ("bedroom", 101))}
+    read_image = _redwood_tree(root, scenes)
+    pose = PoseNet(generator=torch.Generator().manual_seed(0))
+    weights = kept.get("vo_weights")
+    if weights is not None:  # the pose network phase 9's trainer wrote
+        save_params_only(weights, str(root / "vo_weights.pt"))
+        load_pose_weights(pose, str(root / "vo_weights.pt"))
+    flow_pose = FlowPoseNet(generator=torch.Generator().manual_seed(5))
+    timings = []
+    for name, net in (("PoseNet", pose), ("FlowPoseNet", flow_pose)):
+        out = root / name
+        t0 = time.perf_counter()
+        if net is pose:
+            results = evaluate_redwood(net, str(root), (H, W), str(out), scenes=tuple(scenes),
+                                       read_image=read_image)
+        else:
+            results = RedwoodEvaluator(make_pose_fn(net), str(root), (H, W),
+                                       read_image=read_image).evaluate(tuple(scenes), str(out))
+        seconds = time.perf_counter() - t0
+        pairs = sum(r["num_pairs"] for r in results)
+        check(len(results) == 2 and pairs == 2 * (REDWOOD_FRAMES - 1), f"{name}: both scenes")
+        check(all(np.isfinite(v) for r in results for k, v in r.items() if k != "scene"),
+              f"{name}: every result finite")
+        for scene in scenes:
+            with open(out / f"{scene}_pairs.csv") as f:
+                header = f.readline().strip().split(",")
+            check(tuple(header) == CSV_COLUMNS, f"{name} CSV columns {header}")
+        timings.append(f"{name} {seconds / 2:.2f} s a scene, {pairs / seconds:.1f} pairs/s")
+        print(f"  (d) {card}: {name} over 2 scenes x {REDWOOD_FRAMES} frames at {H}x{W} "
+              f"(B=16 chunks): " + "; ".join(
+                  f"{r['scene']} ATE {r['ate_rmse']:.4f} m (reference Umeyama "
+                  f"{r['ate_rmse_reference_umeyama']:.4f}), RPE {r['rpe_pos_mean']:.4f} m / "
+                  f"{r['rpe_rot_mean_deg']:.3f} deg, scale {r['scale_factor']:.3f}"
+                  for r in results)
+              + f"; {seconds / 2:.2f} s a scene, {pairs / seconds:.1f} pairs/s (host clock, "
+              f"frames from memory)")
+    redwood_launches = lookup.launches
+    check(redwood_launches > 0, "K2 launched on the Redwood path")
+    check((k1.launches, k1.backward_launches) == (0, 0), "Redwood launches no K1")
+
+    # One 96x128 scene on the card and on the CPU, both pose networks in fp32.
+    small, _, gt, _ = synthetic_multidepth_sequence(10, 96, 128, seed=7)
+    small_root = root / "small"
+    read_small = _redwood_tree(
+        small_root, {"loft": ((np.clip(small, 0, 1) * 255).round().astype(np.uint8), gt)})
+    for name, net in (("PoseNet", pose), ("FlowPoseNet", flow_pose)):
+        runs, poses = [], []
+        for device in ("cuda", "cpu"):
+            runs.append(RedwoodEvaluator(_recorded(make_pose_fn(net, device=device), poses),
+                                         str(small_root), (96, 128),
+                                         read_image=read_small).evaluate(("loft",)))
+        faulty = copy.deepcopy(net)  # on the CPU, where the last run left it
+        with torch.no_grad():
+            for p in faulty.parameters():
+                p.copy_(p.bfloat16().float())
+        runs.append(RedwoodEvaluator(_recorded(make_pose_fn(faulty, device="cpu"), poses),
+                                     str(small_root), (96, 128),
+                                     read_image=read_small).evaluate(("loft",)))
+        net.to("cuda")
+        on_card = _redwood_diffs(runs[0], runs[1], poses[0], poses[1])
+        fault = _redwood_diffs(runs[2], runs[1], poses[2], poses[1])
+        print(f"  (d) {name}, one 96x128 scene of 10 frames, the card against the CPU: "
+              f"{_describe(*on_card)} (tolerances {REDWOOD_POSE_ATOL:.0e}, "
+              f"{REDWOOD_METRIC_RTOL:.0e}, {REDWOOD_ROT_ATOL_DEG:.3f} deg); the weights rounded "
+              f"to bf16 on the CPU: {_describe(*fault)}")
+        check(_redwood_agree(*on_card), f"{name} results, card against CPU")
+        check(not _redwood_agree(*fault), f"{name}: the comparison misses a bf16-weight fault")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"  K2 launches: RAFT {raft_launches}, Redwood {redwood_launches}; "
+          f"phase {time.perf_counter() - start_phase:.1f} s")
+    return row, raft_launches, redwood_launches
+
+
 def main() -> int:
     if not (ROOT / "deep_visual_slam_torch" / "csrc" / "reprojection.cu").is_file():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -1606,21 +2010,25 @@ def main() -> int:
     trainer_fwd, trainer_bwd = phase_trainer(reprojection_loss, kept, card)
     depth_fwd, depth_bwd = phase_depth(reprojection_loss, card)
     phase_export(reprojection_loss, card)
+    k2_row, raft_k2, redwood_k2 = phase_raft(reprojection_loss, rates, card, kept)
     # Each main path ran with the counts set to 0 just before it.
     k1_row["launches_by_path"] = {
         "eval": eval_launches, "train": train_fwd, "stereo": stereo_fwd, "slam": slam_fwd,
         "global_ba": global_fwd, "trainer": trainer_fwd, "depth": depth_fwd,
+        "raft": 0, "redwood": 0,
     }
     bwd_row["launches_by_path"] = {
         "eval": 0, "train": train_bwd, "stereo": stereo_bwd, "slam": slam_bwd,
         "global_ba": global_bwd, "trainer": trainer_bwd, "depth": depth_bwd,
+        "raft": 0, "redwood": 0,
     }
-    for row in (k1_row, bwd_row):
+    k2_row["launches_by_path"] = {"raft": raft_k2, "redwood": redwood_k2}
+    rows = [k1_row, bwd_row, k2_row]
+    for row in rows:
         row["launches"] = sum(row["launches_by_path"].values())
-    for row in (k1_row, bwd_row):
         check(row["launches"] > 0, f"{row['name']} launched on the main path")
     print(f"total {time.perf_counter() - start:.1f} s")
-    print(json.dumps({"kernels": [k1_row, bwd_row]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

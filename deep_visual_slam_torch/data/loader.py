@@ -185,7 +185,7 @@ def device_prefetch(
 # Sources that read images from paths: they need an image decoder and come
 # with the path datasets.
 _PATH_SOURCES = {
-    "redwood": "ROADMAP.md §1, item 4 (evaluation: data/redwood.py)",
+    "redwood": "ROADMAP.md §1, item 1f (the path datasets: RedwoodDataset)",
     "mars_logger": "ROADMAP.md §1, items 3-4 (the path datasets: data/handlers.py)",
     "custom_data": "ROADMAP.md §1, items 3-4 (the path datasets: data/handlers.py)",
     "irs": "ROADMAP.md §1, items 3-4 (the path datasets: data/handlers.py)",

@@ -1,6 +1,7 @@
 """Trajectory and depth evaluation."""
 
 from deep_visual_slam_torch.eval.metrics import DepthMetrics
+from deep_visual_slam_torch.eval.redwood_eval import RedwoodEvaluator, make_pose_fn
 from deep_visual_slam_torch.eval.traj_eval import EvalTrajectory
 from deep_visual_slam_torch.eval.trajectory import (
     accumulate_trajectory,
@@ -21,6 +22,8 @@ from deep_visual_slam_torch.eval.trajectory import (
 __all__ = [
     "DepthMetrics",
     "EvalTrajectory",
+    "RedwoodEvaluator",
+    "make_pose_fn",
     "accumulate_trajectory",
     "ate_rmse",
     "kitti_segment_errors",

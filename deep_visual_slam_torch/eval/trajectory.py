@@ -3,9 +3,10 @@ and ATE, relative pose error, the monocular scale correction, KITTI
 segment errors and trajectory accumulation. Host numpy on [N, 4, 4]
 camera-to-world poses.
 
-``umeyama_alignment`` uses the normalized scale only; the JAX package's
-``reference_scale_bug`` side-by-side mode has no caller in the port.
-``plot_path_heatmaps`` (matplotlib) is not ported.
+``umeyama_alignment`` uses the normalized scale; ``reference_scale_bug``
+reproduces the reference's unnormalized one for side-by-side numbers (the
+Redwood evaluator reports both). ``plot_path_heatmaps`` (matplotlib) is not
+ported.
 """
 
 from __future__ import annotations
@@ -41,10 +42,14 @@ def relative_pose(T1: np.ndarray, T2: np.ndarray) -> np.ndarray:
 
 
 def umeyama_alignment(
-    poses_pred: np.ndarray, poses_gt: np.ndarray
+    poses_pred: np.ndarray, poses_gt: np.ndarray, reference_scale_bug: bool = False
 ) -> Tuple[np.ndarray, float, np.ndarray, np.ndarray]:
     """7-DoF similarity alignment of pred onto gt: (poses_aligned, scale,
-    R, t) with ``p_aligned = s R p_pred + t``."""
+    R, t) with ``p_aligned = s R p_pred + t``.
+
+    ``reference_scale_bug=True`` takes the reference's scale ``sum(S) /
+    var_pred`` of an unnormalized covariance, N times the true one: only for
+    numbers side by side with the reference stack's."""
     p = positions(poses_pred).astype(np.float64)
     g = positions(poses_gt).astype(np.float64)
     mu_p, mu_g = p.mean(axis=0), g.mean(axis=0)
@@ -56,7 +61,8 @@ def umeyama_alignment(
         Vt[-1, :] *= -1
         R = Vt.T @ U.T
     var_p = np.mean(np.sum(pc**2, axis=1))
-    scale = float(np.sum(S) / (p.shape[0] * var_p)) if var_p > 1e-8 else 1.0
+    n = 1 if reference_scale_bug else p.shape[0]
+    scale = float(np.sum(S) / (n * var_p)) if var_p > 1e-8 else 1.0
     t = mu_g - scale * R @ mu_p
     aligned = []
     for T in np.asarray(poses_pred, np.float64):
@@ -68,13 +74,19 @@ def umeyama_alignment(
 
 
 def ate_rmse(
-    poses_pred: np.ndarray, poses_gt: np.ndarray, align: bool = True
+    poses_pred: np.ndarray,
+    poses_gt: np.ndarray,
+    align: bool = True,
+    reference_scale_bug: bool = False,
 ) -> Tuple[float, np.ndarray, Dict]:
     """Absolute trajectory error RMSE after an optional Umeyama alignment:
     (rmse, aligned poses, stats). ``align=False`` gives the unaligned RMSE
-    of the positions."""
+    of the positions; ``reference_scale_bug`` as in
+    :func:`umeyama_alignment`."""
     if align:
-        aligned, scale, _, _ = umeyama_alignment(poses_pred, poses_gt)
+        aligned, scale, _, _ = umeyama_alignment(
+            poses_pred, poses_gt, reference_scale_bug=reference_scale_bug
+        )
     else:
         aligned, scale = np.asarray(poses_pred, np.float64), 1.0
     err = np.linalg.norm(positions(aligned) - positions(poses_gt), axis=1)

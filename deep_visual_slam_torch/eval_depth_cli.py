@@ -25,23 +25,14 @@ from deep_visual_slam_torch import resolve_device
 from deep_visual_slam_torch.data.loader import device_prefetch
 from deep_visual_slam_torch.eval.metrics import DepthMetrics
 from deep_visual_slam_torch.ops.depth import disp_to_depth
-from deep_visual_slam_torch.utils.checkpoint import load_latest_tree, load_params_only
-from deep_visual_slam_torch.utils.pretrained import strip_compile_prefix
+from deep_visual_slam_torch.utils.checkpoint import load_network_states, network_state
 
 
 def load_depth_weights(model: torch.nn.Module, path: str) -> None:
     """DepthNet weights from a trainer's checkpoint directory (its newest
     checkpoint) or a params-only file (``{"depth": state_dict}`` or a bare
     ``state_dict``)."""
-    if os.path.isdir(path):
-        latest = load_latest_tree(path)
-        if latest is None:
-            raise FileNotFoundError(f"no checkpoint under {path}")
-        sd = latest[0]["depth"]
-    else:
-        sd = load_params_only(path)
-        sd = sd["depth"] if isinstance(sd.get("depth"), dict) else strip_compile_prefix(sd)
-    model.load_state_dict(sd)
+    model.load_state_dict(network_state(load_network_states(path)[0], "depth"))
 
 
 def evaluate(

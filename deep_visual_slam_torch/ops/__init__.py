@@ -28,6 +28,7 @@ from deep_visual_slam_torch.ops.camera import (
 from deep_visual_slam_torch.ops.warp import (
     grid_sample,
     resize_bilinear,
+    resize_bilinear_align_corners,
     upsample_nearest_2x,
 )
 from deep_visual_slam_torch.ops.photometric import (
@@ -59,6 +60,7 @@ __all__ = [
     "intrinsics_pyramid",
     "grid_sample",
     "resize_bilinear",
+    "resize_bilinear_align_corners",
     "upsample_nearest_2x",
     "ssim",
     "reprojection_loss",

@@ -44,3 +44,16 @@ def resize_bilinear(image: torch.Tensor, height: int, width: int) -> torch.Tenso
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x spatial upsample, NHWC."""
     return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+def resize_bilinear_align_corners(image: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Bilinear resize with corner-aligned sampling (align_corners=True), NHWC:
+    what RAFT's ``upflow8`` uses. The same size returns ``image`` itself."""
+    B, H, W, C = image.shape
+    if H == height and W == width:
+        return image
+    out = F.interpolate(
+        image.permute(0, 3, 1, 2), size=(height, width), mode="bilinear",
+        align_corners=True,
+    )
+    return out.permute(0, 2, 3, 1).contiguous()

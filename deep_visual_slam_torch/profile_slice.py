@@ -19,7 +19,9 @@ the track table's size; then the BA solve of the last window alone; then
 non-keyframes: the last frame fed again with an identity odometry
 (``oracle_rel``), a static camera; then the rest of the sweep as
 keyframes and the global BA solve over the whole keyframe history (~60
-keyframes, the F bucket 64).
+keyframes, the F bucket 64). Last, SmallRAFT's forward at 480x640 in fp32
+with 12 iterations on ``smooth_texture`` frames, at B=1 and B=16, by the
+dense route and through kernel K2 (``memory_efficient``).
 
 For each path it prints the wall time per step (host clock, synchronised,
 over steps run without the profiler, whose tracing slows the host), the
@@ -49,6 +51,7 @@ from deep_visual_slam_torch.data import (
     synthetic_slam_sequence,
     synthetic_vo_batch,
 )
+from deep_visual_slam_torch.models import SmallRAFT
 from deep_visual_slam_torch.slam import MonoVO, Networks
 from deep_visual_slam_torch.training import (
     DepthLossConfig,
@@ -71,6 +74,7 @@ DEPTH = ROOT / "configs" / "depth.yaml"
 GROUPS = {
     "K1 reprojection_loss_kernel": ("reprojection_loss_kernel",),
     "K1 reprojection_grad_kernel": ("reprojection_grad_kernel",),
+    "K2 corr_lookup_kernel": ("corr_lookup_kernel",),
     "Adam (foreach)": ("multi_tensor_apply",),
     "cuDNN convolution": ("xmma_fprop", "xmma_dgrad", "xmma_wgrad", "cudnn", "convolve_"),
     "grid_sample": ("grid_sampler",),
@@ -166,6 +170,21 @@ def main() -> None:
     nets = Networks(dtype=getattr(torch, train["compute_dtype"]), seed=0)
     _profile("Networks.step B=1", lambda: nets.step(frames[0], frames[1]), reps=20)
     _profile_slam(nets)
+    _profile_raft()
+
+
+def _profile_raft() -> None:
+    frames = torch.from_numpy(np.ascontiguousarray(
+        smooth_texture(np.random.default_rng(3), 17, 480, 640), dtype=np.float32)).cuda()
+    for memory_efficient in (False, True):
+        model = SmallRAFT(memory_efficient=memory_efficient,
+                          generator=torch.Generator().manual_seed(0)).eval().cuda()
+        for B in (1, 16):
+            a, b = frames[:B], frames[1 : B + 1]
+            with torch.inference_mode():
+                _profile(f"SmallRAFT forward B={B} 480x640 fp32, 12 iterations, "
+                         f"{'memory-efficient (K2)' if memory_efficient else 'dense'}",
+                         lambda: model(a, b), reps=3)
 
 
 def _profile_depth() -> None:

@@ -1,7 +1,14 @@
 """FP32 instruction counts of kernel K1 from its SASS, and the issue floor
-they imply at the train step's [16, 480, 640, 3].
+they imply at the train step's [16, 480, 640, 3]; or kernel K2's resources
+and its memory and shuffle instructions.
 
-    python3 -m deep_visual_slam_torch.sass_report
+    python3 -m deep_visual_slam_torch.sass_report [--source correlation.cu]
+
+With ``--source correlation.cu`` it builds K2's library and prints, for each
+instantiation, its resources (``cuobjdump -res-usage``) and its
+instructions: all of them, FP32, local loads and stores (LDL, STL: spills,
+or an array the compiler put on the stack), global loads (LDG) and
+shuffles (SHFL). The rest of this docstring is K1's report (the default).
 
 Builds ``csrc/reprojection.cu`` as the port builds it, disassembles the
 library with ``cuobjdump -sass`` and prints, for each kernel function, its
@@ -27,6 +34,7 @@ count and the clock) and the CUDA toolkit.
 
 from __future__ import annotations
 
+import argparse
 import re
 import subprocess
 from collections import Counter
@@ -66,11 +74,23 @@ def _count(ops) -> tuple[int, int]:
     return sum(b in FP32 for b in base), sum(b == "MUFU" for b in base)
 
 
+def _report_k2(sass: str) -> None:
+    for name, ops in _functions(sass).items():
+        base = [op.split(".")[0] for op in ops]
+        fp32, _ = _count(ops)
+        print(f"K2 {name}: {len(ops)} instructions, FP32 {fp32}, " + ", ".join(
+            f"{k} {base.count(k)}" for k in ("LDL", "STL", "LDG", "SHFL")))
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--source", choices=("reprojection.cu", "correlation.cu"),
+                        default="reprojection.cu", help="the kernel's source in csrc/")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("sass_report needs a CUDA card (SM count and clock)")
-    cuda_build.build_all(["reprojection.cu"])
-    lib = str(cuda_build.library_path("reprojection.cu"))
+    cuda_build.build_all([args.source])
+    lib = str(cuda_build.library_path(args.source))
     tool = cuda_build.cuda_tool("cuobjdump")
     sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
                           check=True).stdout
@@ -85,8 +105,11 @@ def main() -> None:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"{smi} (name, power limit W, max SM clock MHz); {sms} SMs")
     for line in usage.splitlines():
-        if "reprojection" in line or "REG:" in line:
+        if "Function" in line or "REG:" in line:
             print("  " + line.strip())
+    if args.source == "correlation.cu":
+        _report_k2(sass)
+        return
     B, H, W, C = SHAPE
     blocks = B * -(-H // TILE[0]) * -(-W // TILE[1])
     functions = _functions(sass)

@@ -79,17 +79,17 @@ class Networks:
     @classmethod
     def from_checkpoint(cls, ckpt_dir: str, **kwargs) -> "Networks":
         """The networks of the newest VO trainer checkpoint under
-        ``ckpt_dir`` (``<weights>/<experiment_name>``). The uncertainty head
+        ``ckpt_dir`` (``<weights>/<experiment_name>``), or of a params-only
+        file of ``{"depth", "pose"}`` weights (such as
+        ``scripts/jax_checkpoint_to_torch.py`` writes). The uncertainty head
         is on when the depth weights hold it (decoder index 14, the
         reference's ``uncconv_0``), unless ``predict_uncertainty`` is given;
         other ``kwargs`` pass to the constructor."""
-        from deep_visual_slam_torch.utils.checkpoint import load_latest_tree
+        from deep_visual_slam_torch.utils.checkpoint import load_network_states
 
-        loaded = load_latest_tree(ckpt_dir)
-        if loaded is None:
-            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
-        tree, step = loaded
-        print(f"Networks.from_checkpoint: {ckpt_dir} @ step {step}")
+        tree, step = load_network_states(ckpt_dir)
+        print(f"Networks.from_checkpoint: {ckpt_dir}"
+              + ("" if step is None else f" @ step {step}"))
         kwargs.setdefault(
             "predict_uncertainty", any(k.startswith("decoder.14.") for k in tree["depth"])
         )

@@ -20,6 +20,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from deep_visual_slam_torch.utils.pretrained import strip_compile_prefix
+
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
 
@@ -109,3 +111,23 @@ def save_params_only(state_dicts: Dict[str, Dict[str, torch.Tensor]], path: str)
 
 def load_params_only(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_network_states(path: str) -> Tuple[Dict, Optional[int]]:
+    """The networks' weights that ``path`` holds, as ``(tree, step)``: a
+    trainer's checkpoint directory gives its newest checkpoint and its step,
+    a params-only file (``{"depth": ..., "pose": ...}``, or a bare
+    ``state_dict``) its contents and ``None``."""
+    if os.path.isfile(path):
+        return load_params_only(path), None
+    latest = load_latest_tree(path)
+    if latest is None:
+        raise FileNotFoundError(f"no checkpoint under {path}")
+    return latest
+
+
+def network_state(tree: Dict, name: str) -> Dict[str, torch.Tensor]:
+    """``tree[name]`` (``"depth"`` or ``"pose"``) of :func:`load_network_states`,
+    or the tree itself when it is a bare ``state_dict``, compile prefixes
+    stripped."""
+    return tree[name] if isinstance(tree.get(name), dict) else strip_compile_prefix(tree)

@@ -27,8 +27,11 @@ COMMON_FLAGS = (
 )
 # Per-source extra flags. reprojection.cu: no FMA contraction, so every
 # product and sum rounds as the plain PyTorch version's elementwise ops do.
+# correlation.cu sums its dots in another order than the plain version in
+# any case, so it keeps nvcc's default contraction.
 SOURCES: Dict[str, tuple] = {
     "reprojection.cu": ("-fmad=false",),
+    "correlation.cu": (),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -15,7 +15,9 @@ pose encoder's 3-channel conv1 is tiled over its two images and divided by
 two), the full networks then override it. The depth trainer reads the
 encoder and ``pretrained_weights.depth`` only. A file may wrap its weights in a
 ``"state_dict"`` entry and carry torch.compile's ``_orig_mod.`` prefixes.
-Every graft must match the model's keys and shapes exactly.
+Every graft must match the model's keys and shapes exactly. A reference
+RAFT checkpoint (FlowPoseNet's frozen flow network) loads through
+:func:`load_raft_state_dict`.
 """
 
 from __future__ import annotations
@@ -121,3 +123,18 @@ def apply_depth_pretrained(depth_model: nn.Module, config: Dict) -> List[str]:
         _graft(depth_model, load_state_dict_file(pw["depth"]), "", pw["depth"])
         report.append(f"pretrained depth net: {pw['depth']}")
     return report
+
+
+def load_raft_state_dict(path: str, small: bool = True) -> Dict[str, torch.Tensor]:
+    """A reference RAFT checkpoint (``raft-small.pth``, ``raft-things.pth``,
+    ...) as the port's RAFT ``state_dict``: DataParallel's ``module.`` and
+    compile prefixes stripped, and checked by a strict load into
+    ``RAFT(small=small)``, which raises on a missing, extra or misshapen
+    key. The names are the reference's, so nothing is converted; load the
+    result into a RAFT, or into ``FlowPoseNet.flow_net``."""
+    from deep_visual_slam_torch.models.raft import RAFT
+
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v
+          for k, v in load_state_dict_file(path).items()}
+    RAFT(small=small).load_state_dict(sd)
+    return sd

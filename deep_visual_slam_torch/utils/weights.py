@@ -107,3 +107,92 @@ def posenet_from_jax(variables: Mapping, num_layers: int = 18) -> Dict[str, torc
 # TwoEncoderPoseNet's tree (one shared ``encoder``, ``squeeze``,
 # ``pose_0..2``) has PoseNet's names, and its port the same ``net.0..3``.
 two_encoder_posenet_from_jax = posenet_from_jax
+
+
+def _raft_encoder(out: Dict, pre: str, params: Mapping, stats: Mapping, small: bool) -> None:
+    """A JAX RAFT ``Encoder`` -> ``{pre}.*``. Norms carry parameters only in
+    the batch-normed (Basic ``cnet``) encoder; its shortcut norm appears under
+    both of the reference's names, ``norm3``/``norm4`` and ``downsample.1``."""
+    _conv(out, f"{pre}.conv1", params["Conv_0"])
+    if "_Norm_0" in params:
+        _bn(out, f"{pre}.norm1", params["_Norm_0"]["BatchNorm_0"],
+            stats["_Norm_0"]["BatchNorm_0"])
+    block, n_convs = ("BottleneckBlock", 3) if small else ("ResidualBlock", 2)
+    for i in range(6):
+        bp = params[f"{block}_{i}"]
+        bs = stats.get(f"{block}_{i}", {})
+        t = f"{pre}.layer{i // 2 + 1}.{i % 2}"
+        for ci in range(n_convs):
+            _conv(out, f"{t}.conv{ci + 1}", bp[f"Conv_{ci}"])
+            if f"_Norm_{ci}" in bp:
+                _bn(out, f"{t}.norm{ci + 1}", bp[f"_Norm_{ci}"]["BatchNorm_0"],
+                    bs[f"_Norm_{ci}"]["BatchNorm_0"])
+        if f"Conv_{n_convs}" in bp:
+            _conv(out, f"{t}.downsample.0", bp[f"Conv_{n_convs}"])
+            norm = f"_Norm_{n_convs}"
+            if norm in bp:
+                for name in (f"{t}.norm{n_convs + 1}", f"{t}.downsample.1"):
+                    _bn(out, name, bp[norm]["BatchNorm_0"], bs[norm]["BatchNorm_0"])
+    _conv(out, f"{pre}.conv2", params["Conv_1"])
+
+
+def raft_from_jax(variables: Mapping, small: bool = True) -> Dict[str, torch.Tensor]:
+    """JAX ``models.RAFT`` variables -> the port's RAFT ``state_dict`` (the
+    reference torch names): the inverse of the JAX package's
+    ``convert_raft``, ``batch_stats`` (the Basic ``cnet``) included."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out: Dict[str, torch.Tensor] = {}
+    for name in ("fnet", "cnet"):
+        _raft_encoder(out, name, params[name], stats.get(name, {}), small)
+    up = params["refine"]["update"]
+    u = "update_block"
+    if small:
+        enc_names = ("convc1", "convf1", "convf2", "conv")
+        enc, gru = up["SmallMotionEncoder_0"], up["ConvGRU_0"]
+        for g, key in zip("zrq", ("Conv_0", "Conv_1", "Conv_2")):
+            _conv(out, f"{u}.gru.conv{g}", gru[key])
+    else:
+        enc_names = ("convc1", "convc2", "convf1", "convf2", "conv")
+        enc, gru = up["BasicMotionEncoder_0"], up["SepConvGRU_0"]
+        for i, axis in ((1, "h"), (2, "v")):
+            for g in "zrq":
+                _conv(out, f"{u}.gru.conv{g}{i}", gru[f"conv{g}_{axis}"])
+        _conv(out, f"{u}.mask.0", up["Conv_0"])
+        _conv(out, f"{u}.mask.2", up["Conv_1"])
+    for i, name in enumerate(enc_names):
+        _conv(out, f"{u}.encoder.{name}", enc[f"Conv_{i}"])
+    _conv(out, f"{u}.flow_head.conv1", up["FlowHead_0"]["Conv_0"])
+    _conv(out, f"{u}.flow_head.conv2", up["FlowHead_0"]["Conv_1"])
+    return out
+
+
+def _linear(out: Dict, prefix: str, p: Mapping) -> None:
+    """flax ``Dense`` (kernel [in, out]) -> torch ``Linear`` ([out, in])."""
+    out[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def flow_posenet_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``FlowPoseNet`` variables -> the port's ``state_dict``: its
+    SmallRAFT ``flow_net`` through :func:`raft_from_jax`, the head's
+    ``Conv_0..2`` to ``conv1..3`` and ``Dense_0`` to ``fc``."""
+    params = variables["params"]
+    raft = raft_from_jax({"params": params["flow_net"]}, small=True)
+    out = {f"flow_net.{k}": v for k, v in raft.items()}
+    for i in range(3):
+        _conv(out, f"conv{i + 1}", params[f"Conv_{i}"])
+    _linear(out, "fc", params["Dense_0"])
+    return out
+
+
+def flow_update_module_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``FlowUpdateModule`` variables -> the port's ``state_dict``."""
+    params = variables["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for i, name in enumerate(("convc1", "convc2", "convf1", "convf2", "conv")):
+        _conv(out, name, params[f"Conv_{i}"])
+    for name, p in params["GlobalContextConvGRU_0"].items():
+        _conv(out, f"gru.{name}", p)
+    _linear(out, "fc", params["Dense_0"])
+    return out

@@ -17,18 +17,24 @@ in the backward). K1's backward kernel and the plain version's
 autograd take their sums in other orders (and the plain one's
 reflect-padding backward adds with atomics): atol 2e-5 x the largest
 gradient.
+
+K2 (the windowed correlation lookup) against the plain lazy lookup, at
+SmallRAFT's and BasicRAFT's shapes at 480x640 and at small shapes whose
+fourth level is 1x1, with targets up to 12 pixels off the grid: atol 1e-4 on
+correlations up to ~5 (the kernel dots before it blends and sums in another
+order; 4.6e-5 measured at D = 128).
 """
 
 import pytest
 import torch
 
-from deep_visual_slam_torch.ops import photometric_cuda
+from deep_visual_slam_torch.ops import correlation, correlation_cuda, photometric_cuda
 
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc (kernel K1 has no CPU mode)")
+        pytest.skip("needs a CUDA device and nvcc (a CUDA kernel has no CPU mode)")
     return torch.device("cuda")
 
 
@@ -147,3 +153,66 @@ def test_reprojection_backward_kernel_leaves_a_strided_gradient_uncopied(cuda_de
     photometric_cuda.reprojection_loss_plain(a, y, 0.85).backward(g)
     torch.cuda.synchronize()
     _assert_grads_close((got,), (a.grad,))
+
+
+K2_SHAPES = [(16, 60, 80, 128, 3), (1, 60, 80, 256, 4), (2, 9, 13, 16, 3), (2, 8, 12, 32, 4)]
+
+
+def _corr_inputs(shape, device):
+    B, H, W, D, _ = shape
+    g = torch.Generator(device=device).manual_seed(2)
+    f1 = torch.randn((B, H, W, D), device=device, generator=g)
+    f2 = torch.randn((B, H, W, D), device=device, generator=g)
+    ys, xs = torch.meshgrid(torch.arange(H, device=device, dtype=torch.float32),
+                            torch.arange(W, device=device, dtype=torch.float32), indexing="ij")
+    coords = torch.stack([xs, ys], -1) + 24 * torch.rand((B, H, W, 2), device=device,
+                                                         generator=g) - 12
+    return f1, correlation.build_corr_pyramid(f1, f2, 4, memory_efficient=True)[2], coords
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_windowed_correlation_matches_plain_on_card(cuda_device, shape):
+    f1, levels, coords = _corr_inputs(shape, cuda_device)
+    radius = shape[-1]
+    launches = correlation_cuda.windowed_correlation.launches
+    with torch.no_grad():
+        out = correlation.corr_pyramid_lookup(("lazy", f1, levels), coords, radius)
+        torch.cuda.synchronize()
+        ref = correlation.lookup_lazy_plain(f1, levels, coords, radius)
+    assert correlation_cuda.windowed_correlation.launches == launches + 1
+    assert out.shape == ref.shape == shape[:3] + (4 * (2 * radius + 1) ** 2,)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_windowed_correlation_takes_unaligned_rows(cuda_device):
+    """fmap1 one float past a 16-byte boundary: the kernel's scalar form
+    (its 16-byte row loads need aligned rows)."""
+    f1, levels, coords = _corr_inputs((2, 16, 20, 128, 3), cuda_device)
+    shifted = torch.empty(f1.numel() + 1, device=cuda_device)[1:].view(f1.shape)
+    shifted.copy_(f1)
+    with torch.no_grad():
+        out = correlation_cuda.windowed_correlation(shifted, levels, coords, 3)
+        ref = correlation.lookup_lazy_plain(f1, levels, coords, 3)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_windowed_correlation_rejects_what_it_cannot_take(cuda_device):
+    f1, levels, coords = _corr_inputs((1, 8, 12, 16, 3), cuda_device)
+    k2 = correlation_cuda.windowed_correlation
+    with pytest.raises(RuntimeError, match="ROADMAP"):  # forward only
+        k2(f1.clone().requires_grad_(), levels, coords, 3)
+    with pytest.raises(TypeError):
+        k2(f1.double(), levels, coords, 3)
+    with pytest.raises(ValueError):  # not contiguous
+        k2(f1.transpose(1, 2).contiguous().transpose(1, 2), levels, coords, 3)
+    for radius in (1, 2, 5):  # no RAFT window: no instantiation
+        with pytest.raises(ValueError):
+            k2(f1, levels, coords, radius)
+    with pytest.raises(ValueError):  # a level on the CPU
+        k2(f1, [levels[0].cpu()] + levels[1:], coords, 3)
+    wide = torch.zeros((1, 8, 12, correlation_cuda.MAX_CHANNELS + 1), device=cuda_device)
+    with pytest.raises(ValueError):  # more channels than a warp's lanes hold
+        k2(wide, [wide], coords, 3)
