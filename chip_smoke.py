@@ -128,6 +128,21 @@ the run with a non-zero exit code and no result line:
    (NCCL, BatchNorm synced) against the unwrapped step from the same
    weights, batch and generator: losses, updated weights and BatchNorm
    statistics, K1's launches under DDP, and ms per step of each, in turns.
+14. ORB SLAM, ``MonoVO(frontend="orb")``, which launches no kernel of the
+   port's own (K1 and K2 0). (a) ``extract_features`` (ORB in PyTorch,
+   3000 features, 8 levels) on 4 of phase 7b's frames at 480x640 on the
+   card and on the CPU: equal keypoints, angles, responses and
+   descriptors; keypoints per level; ms per frame (median of 20, CUDA
+   events). (b) The matcher on consecutive frames' features: the card's
+   lists equal the CPU's; ms per call. (c) The loop over phase 7c's slow
+   sweep (480x640 uint8, 40 frames, ``num_kf=7``, ``max_points=256``),
+   from phase 7's bf16 networks and from an oracle initialization (GT
+   depth and noisy GT odometry standing in for the networks), without and
+   with BA: ms per keyframe and non-keyframe, the ``timings`` by stage,
+   keyframes, points, the aligned ATE and BA's move, and one BA solve's
+   ms. (d) The loop at 96x128 in fp32, the card against the CPU: the same
+   keyframes, poses within ``SLAM_SMALL_ATOL``. (e) Global BA over (c)'s
+   keyframes with BA: ms, and the keyframe ATE's move.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
@@ -396,6 +411,16 @@ MATCH_N, MATCH_REPS = 3000, 20
 # value; measured at 0.07 of that. Two unwrapped steps from the same start
 # gave equal losses and statistics there, and weights 1.7e-4 apart.
 DDP_STATS_RTOL, DDP_STATS_ATOL = 1e-2, 1e-3
+
+# Phase 14: the ORB loop. (a) ORB on the card against the CPU: integer and
+# IEEE elementwise arithmetic only (ops/orb.py), so the keypoints, angles,
+# responses and descriptors must be equal; 4 of phase 7b's frames, 20 timed
+# calls each. (c) The loop over phase 7c's slow sweep (uint8, 40 frames).
+# (d) The loop at 96x128 in fp32, the card against the CPU: the same
+# keyframes and poses within phase 7a's SLAM_SMALL_ATOL (ORB and the matcher
+# give equal lists on both, so only the networks' and the solves' sums
+# differ).
+ORB_FRAMES, ORB_REPS = 4, 20
 
 
 def check(ok: bool, what: str) -> None:
@@ -870,8 +895,8 @@ def phase_train(k1, k1_ms, k1_bwd_ms, config):
 
 def _slam_run(vo, frames, oracle=None, optimize=True, log=None):
     """Every frame through ``vo.process_frame``; with ``log``, appends
-    (host ms, keyframe?, tracks alive) per frame. Returns (trajectory T_wc,
-    keyframe ids)."""
+    (host ms, keyframe?, tracks alive, or on the ORB path the points the
+    frame observes) per frame. Returns (trajectory T_wc, keyframe ids)."""
     for i, frame in enumerate(frames):
         kw = {} if oracle is None else dict(oracle_depth=oracle[0][i], oracle_rel=oracle[1][i])
         n_kf = vo.n_keyframes
@@ -879,7 +904,9 @@ def _slam_run(vo, frames, oracle=None, optimize=True, log=None):
         vo.process_frame(frame, optimize=optimize, **kw)
         ms = (time.perf_counter() - start) * 1e3
         if log is not None:
-            log.append((ms, vo.n_keyframes > n_kf, int(vo.klt.alive.sum())))
+            tracks = (int(vo.klt.alive.sum()) if vo.klt is not None
+                      else len(vo.mp.frames[-1].pts))
+            log.append((ms, vo.n_keyframes > n_kf, tracks))
     traj = vo.trajectory()
     check(np.isfinite(traj).all(), "SLAM trajectory finite")
     return traj, sorted(f.id for f in vo.mp.frames if f.anchor is f)
@@ -978,10 +1005,11 @@ def phase_slam(k1):
 
     # (c) Serving: 480x640 uint8 frames, bf16 networks, no oracle, a slow
     # sweep; a short warm-up run first.
-    frames, K, gt, _ = synthetic_multidepth_sequence(
+    frames, K, gt, serve_depths = synthetic_multidepth_sequence(
         SLAM_SERVE_FRAMES, H, W, seed=101, step_translation=0.003, step_rotation=0.0006
     )
     frames = (frames * 255).round().astype(np.uint8)
+    kept["serve"] = dict(frames=frames, K=K, gt=gt, depths=serve_depths)
     gt_wc = np.linalg.inv(np.asarray(gt, np.float64))
     _slam_run(MonoVO(K, networks=nets, image_shape=(H, W)), frames[:8])
     torch.cuda.synchronize()
@@ -2367,6 +2395,190 @@ def phase_da_matcher_ddp(k1, config, kept, card):
     return ddp_fwd, ddp_bwd
 
 
+class _OracleNetworks:
+    """Stands in for ``Networks`` in the ORB loop with an oracle
+    initialization: GT depth and the noisy GT odometry of
+    ``make_oracle_inits``, served in frame order and handed over on the card
+    as the networks' outputs are (the ORB path has no oracle hooks of its
+    own, as in the JAX package)."""
+
+    def __init__(self, nets, depths, rels):
+        self.device = nets.device
+        self.to_device = nets.to_device
+        self._depths, self._rels, self._i = depths, rels, 0
+
+    def depth_unc(self, image):
+        self._i = 1
+        return np.asarray(self._depths[0], np.float32), None
+
+    def step_async(self, prev, cur):
+        i, self._i = self._i, self._i + 1
+        depth = torch.from_numpy(np.asarray(self._depths[i], np.float32)[None]).to(self.device)
+        rel = torch.from_numpy(np.asarray(self._rels[i], np.float32)[None]).to(self.device)
+        return depth, None, rel
+
+
+def _phase14_orb(frames, card):
+    """(a) and (b): ORB and the matcher on 480x640 frames."""
+    from deep_visual_slam_torch.ops import orb
+    from deep_visual_slam_torch.slam import frontend
+
+    feats, ms, counts = [], [], []
+    for frame in frames:
+        cpu = frontend.extract_features(frame, device="cpu")
+        card_feats = frontend.extract_features(frame)
+        check(np.array_equal(cpu[0], card_feats[0]) and np.array_equal(cpu[1], card_feats[1]),
+              "ORB features, card against CPU")
+        gray = frontend._gray_u8(torch.from_numpy(frame).cuda())
+        full = orb.detect_and_compute(gray)
+        full_cpu = orb.detect_and_compute(gray.cpu())
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(full, full_cpu)),
+              "ORB keypoints, angles, responses and descriptors, card against CPU")
+        counts.append(np.bincount(full[1].cpu().numpy(), minlength=orb.NLEVELS).tolist())
+        times = []
+        for i in range(ORB_REPS + 2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            frontend.extract_features(frame)
+            end.record()
+            end.synchronize()
+            if i >= 2:
+                times.append(start.elapsed_time(end))
+        ms.append(statistics.median(times))
+        feats.append(card_feats)
+    print(f"  (a) {card}: extract_features at 480x640 (upload, gray, ORB, copy back): "
+          f"the card's keypoints and descriptors equal the CPU's on {len(frames)} frames; "
+          f"ms per frame (median of {ORB_REPS}, CUDA events) "
+          f"{', '.join(f'{m:.2f}' for m in ms)}; keypoints per level "
+          f"{'; '.join(str(c) for c in counts)} (quotas {orb.feature_quotas()})")
+    match_ms, n_matches = [], []
+    for (_, d1), (_, d2) in zip(feats, feats[1:]):
+        want = frontend.match_descriptors(d1, d2, device="cpu")
+        check(frontend.match_descriptors(d1, d2) == want, "ORB matches, card against CPU")
+        n_matches.append(len(want[0]))
+        times = []
+        for _ in range(ORB_REPS):
+            t0 = time.perf_counter()
+            frontend.match_descriptors(d1, d2)
+            times.append((time.perf_counter() - t0) * 1e3)
+        match_ms.append(statistics.median(times))
+    print(f"  (b) {card}: the matcher on consecutive frames' features "
+          f"({', '.join(f'{len(a[1])} x {len(b[1])}' for a, b in zip(feats, feats[1:]))}): "
+          f"{n_matches} matches, lists equal on the card and the CPU; ms per call (median of "
+          f"{ORB_REPS}, host clock) {', '.join(f'{m:.3f}' for m in match_ms)}")
+    return statistics.median(ms), statistics.median(match_ms)
+
+
+def phase_orb(k1, kept, card):
+    from deep_visual_slam_torch.data import make_oracle_inits, synthetic_multidepth_sequence
+    from deep_visual_slam_torch.eval import ate_rmse
+    from deep_visual_slam_torch.ops.correlation_cuda import windowed_correlation
+    from deep_visual_slam_torch.slam import MonoVO, Networks
+
+    print("phase 14: ORB SLAM, MonoVO(frontend=\"orb\") (windowed BA at levels (2, 1))")
+    start_phase = time.perf_counter()
+    k1.launches = k1.backward_launches = 0
+    windowed_correlation.launches = 0
+    frames7b = (np.clip(kept["seeds"][100]["frames"][:ORB_FRAMES], 0, 1) * 255).round()
+    orb_ms, match_ms = _phase14_orb(frames7b.astype(np.uint8), card)
+
+    # (c) 480x640 uint8, bf16 networks or the oracle, without and with BA.
+    serve = kept["serve"]
+    frames, K, gt = serve["frames"], serve["K"], serve["gt"]
+    gt_wc = np.linalg.inv(np.asarray(gt, np.float64))
+    oracle = make_oracle_inits(gt, serve["depths"], 101, 0.3, 0.005, 0.0)
+    nets = kept["nets"]
+
+    def orb_vo(init):
+        source = nets if init == "net" else _OracleNetworks(nets, *oracle)
+        return MonoVO(K, networks=source, frontend="orb")
+
+    _slam_run(orb_vo("net"), frames[:6])  # warm-up
+    torch.cuda.synchronize()
+    runs = {}
+    for init in ("net", "oracle"):
+        for optimize in (False, True):
+            log = []
+            vo = orb_vo(init)
+            traj, kfs = _slam_run(vo, frames, optimize=optimize, log=log)
+            runs[init, optimize] = dict(vo=vo, traj=traj, kfs=kfs, log=log,
+                                        ate=ate_rmse(traj, gt_wc)[0])
+    for (init, optimize), r in runs.items():
+        kinds = {"keyframe": [], "non-keyframe": []}
+        for ms, is_kf, _ in r["log"][1:]:
+            kinds["keyframe" if is_kf else "non-keyframe"].append(ms)
+        med = {k: (f"{statistics.median(v):.2f} (x{len(v)})" if v else "none")
+               for k, v in kinds.items()}
+        timings = {k: round(v * 1e3 / len(frames), 2) for k, v in r["vo"].timings.items()}
+        points = statistics.mean(p for _, _, p in r["log"][1:])
+        print(f"  (c) {card}: {init} init, {'with' if optimize else 'without'} BA, "
+              f"{len(frames)} frames of phase 7c's slow sweep, 480x640 uint8, num_kf=7, "
+              f"max_points=256: ms/frame (host clock, median) keyframe {med['keyframe']}, "
+              f"non-keyframe {med['non-keyframe']}; timings ms/frame {timings}; "
+              f"{len(r['kfs'])} keyframes, {len(r['vo'].mp.points)} points ({points:.0f} "
+              f"observed a frame on average); ATE after sim(3) alignment {r['ate']:.6f} m")
+    for init in ("net", "oracle"):
+        move = runs[init, True]["ate"] - runs[init, False]["ate"]
+        print(f"  (c) {init} init: windowed BA moves the ATE by {move:+.6f} m "
+              f"({'lowers' if move < 0 else 'raises'} it)")
+    vo = runs["net", True]["vo"]
+    check(len(runs["net", True]["kfs"]) >= 3, "ORB keyframes in the serving run")
+    window = vo.mp.keyframes[-vo.mp.num_kf:]
+    built = vo.mp._build_problem(K, window, vo.mp.max_points, pad_frames=vo.mp.num_kf)
+    check(built is not None, "ORB tracks shared by the last window's keyframes")
+    solve_ms = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        poses, depths_ba, _ = vo.mp.solve(built[0], len(window))
+        torch.cuda.synchronize()
+        solve_ms.append((time.perf_counter() - t0) * 1e3)
+    check(bool(torch.isfinite(poses).all() and torch.isfinite(depths_ba).all()), "ORB BA finite")
+    print(f"  (c) BA solve on the net run's last window ({len(window)} keyframes, "
+          f"{len(built[1])} tracks): {statistics.median(solve_ms[1:]):.2f} ms (median of 5 "
+          "after one, synchronised)")
+
+    # (d) 96x128 fp32, the card against the CPU.
+    small = synthetic_multidepth_sequence(10, 96, 128, seed=3, step_translation=0.02,
+                                          step_rotation=0.004)
+    K_small, small_vos = kept["small"]
+    got = {}
+    for device in ("cpu", "cuda"):
+        vo_s = MonoVO(K_small, networks=small_vos[device].nn, image_shape=(96, 128), num_kf=4,
+                      max_points=64, frontend="orb", device=device)
+        got[device] = _slam_run(vo_s, small[0])
+    (traj_c, kf_c), (traj_g, kf_g) = got["cpu"], got["cuda"]
+    err = float(np.abs(traj_g - traj_c).max())
+    print(f"  (d) 96x128 fp32, 10 frames: keyframes {kf_g} on the card, {kf_c} on the CPU; "
+          f"poses within {err:.2e} (tolerance {SLAM_SMALL_ATOL:.0e})")
+    check(kf_g == kf_c, "ORB loop keyframes on the card and the CPU")
+    check(err <= SLAM_SMALL_ATOL, f"ORB loop poses on the card and the CPU within {SLAM_SMALL_ATOL}")
+
+    # (e) Global BA over (c)'s keyframes.
+    for init in ("oracle", "net"):
+        vo = runs[init, True]["vo"]
+        kf_ids = runs[init, True]["kfs"]
+        before = ate_rmse(vo.trajectory()[kf_ids], gt_wc[kf_ids])[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(vo.mp.global_bundle_adjustment(K), f"global BA over the {init} run's keyframes")
+        torch.cuda.synchronize()
+        global_ms = (time.perf_counter() - t0) * 1e3
+        traj = vo.trajectory()
+        check(np.isfinite(traj).all(), "trajectory after global BA finite")
+        after = ate_rmse(traj[kf_ids], gt_wc[kf_ids])[0]
+        print(f"  (e) global BA over the {init} run's {len(kf_ids)} ORB keyframes: "
+              f"{global_ms:.2f} ms (build and solve, synchronised); keyframe ATE "
+              f"{before:.6f} -> {after:.6f} m ({after - before:+.6f})")
+    launches = (k1.launches, k1.backward_launches, windowed_correlation.launches)
+    print(f"  K1 launches {launches[0]} forward, {launches[1]} backward, K2 {launches[2]} "
+          f"(the ORB path runs none); ORB {orb_ms:.2f} ms a frame, matcher {match_ms:.3f} ms; "
+          f"phase {time.perf_counter() - start_phase:.1f} s")
+    check(launches == (0, 0, 0), "the ORB path launches no K1 and no K2")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "deep_visual_slam_torch" / "csrc" / "reprojection.cu").is_file():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -2397,20 +2609,23 @@ def main() -> int:
     phase_export(reprojection_loss, card)
     k2_row, raft_k2, redwood_k2 = phase_raft(reprojection_loss, rates, card, kept)
     ddp_fwd, ddp_bwd = phase_da_matcher_ddp(reprojection_loss, config, kept, card)
-    # Each main path ran with the counts set to 0 just before it. DA-V2 and
-    # the matcher launch none of the port's kernels.
+    orb_fwd, orb_bwd, orb_k2 = phase_orb(reprojection_loss, kept, card)
+    # Each main path ran with the counts set to 0 just before it. DA-V2,
+    # the matcher and the ORB loop launch none of the port's kernels.
     k1_row["launches_by_path"] = {
         "eval": eval_launches, "train": train_fwd, "stereo": stereo_fwd, "slam": slam_fwd,
         "global_ba": global_fwd, "trainer": trainer_fwd, "depth": depth_fwd,
         "raft": 0, "redwood": 0, "depth_anything": 0, "matcher": 0, "ddp": ddp_fwd,
+        "orb": orb_fwd,
     }
     bwd_row["launches_by_path"] = {
         "eval": 0, "train": train_bwd, "stereo": stereo_bwd, "slam": slam_bwd,
         "global_ba": global_bwd, "trainer": trainer_bwd, "depth": depth_bwd,
         "raft": 0, "redwood": 0, "depth_anything": 0, "matcher": 0, "ddp": ddp_bwd,
+        "orb": orb_bwd,
     }
     k2_row["launches_by_path"] = {"raft": raft_k2, "redwood": redwood_k2,
-                                  "depth_anything": 0, "matcher": 0, "ddp": 0}
+                                  "depth_anything": 0, "matcher": 0, "ddp": 0, "orb": orb_k2}
     rows = [k1_row, bwd_row, k2_row]
     for row in rows:
         row["launches"] = sum(row["launches_by_path"].values())

@@ -22,7 +22,8 @@ rounds them. The JSON goes to ``results/ba_ablation_torch.json`` unless
 The networks are random (``Networks(seed=0)``) or, with ``--vo_ckpt``, those
 of the newest checkpoint of a VO trainer run (``Networks.from_checkpoint``
 of ``<weights>/<experiment_name>``), on the card unless ``--device cpu``.
-Not ported: ``--frontend orb`` (cv2), which raises ``NotImplementedError``.
+``--frontend orb`` runs the ORB loop (ORB and matching on the same device),
+with ``--init net`` only: the oracle hooks belong to the KLT frontend.
 """
 
 from __future__ import annotations
@@ -125,7 +126,7 @@ def main(argv=None) -> None:
     ap.add_argument("--ba_levels", type=int, nargs="+", default=[2, 1],
                     help="BA pyramid levels, coarsest first")
     ap.add_argument("--frontend", choices=("klt", "orb"), default="klt",
-                    help="orb: not ported (cv2): raises")
+                    help="orb: the reference's ORB frontend (net init only)")
     ap.add_argument("--depth_damping", type=float, default=1.0,
                     help="depth-Hessian floor of the BA")
     ap.add_argument("--pose_prior_weight", type=float, default=1e3,
@@ -146,11 +147,12 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     H, W = args.size
 
-    if args.frontend == "orb":
-        raise NotImplementedError("--frontend orb: the ORB frontend (cv2) is not ported yet")
     distractor = None if args.distractor == "none" else args.distractor
     if args.init == "oracle" and args.scene != "multidepth":
         ap.error("--init oracle requires --scene multidepth (needs GT depth)")
+    if args.init == "oracle" and args.frontend == "orb":
+        ap.error("--frontend orb supports --init net only (oracle injection "
+                 "requires the KLT frontend)")
 
     # One set of networks for every configuration: the ablation isolates
     # the backend.

@@ -25,9 +25,13 @@ dense route and through kernel K2 (``memory_efficient``). Last,
 Depth-Anything-V2's forward (``vits`` and ``vitl``, random weights) at B=1
 in bf16 at 518x518 and 490x644, and the ``configs/vo.yaml`` train step
 under DDP at world size 1 (NCCL, BatchNorm synced) beside the unwrapped
-one. ``--only`` names the paths to run (``train``, ``eval``, ``depth``,
-``trainer``, ``networks``, ``slam``, ``raft``, ``depth_anything``,
-``ddp``).
+one. Then the ORB path: ``extract_features`` (ORB, 3000 features, 8
+levels) of a 480x640 frame, and ``MonoVO(frontend="orb")`` over the fast
+sweep's uint8 frames, each frame made a keyframe (with its windowed BA),
+then each made a non-keyframe, by the keyframe score computed and its
+decision overridden. ``--only`` names the paths to run (``train``,
+``eval``, ``depth``, ``trainer``, ``networks``, ``slam``, ``raft``,
+``depth_anything``, ``ddp``, ``orb``).
 
 For each path it prints the wall time per step (host clock, synchronised,
 over steps run without the profiler, whose tracing slows the host), the
@@ -356,6 +360,45 @@ def _profile_slam(nets: Networks) -> None:
              lambda: vo.mp.solve_global(problem, len(kfs)), reps=5)
 
 
+def _profile_orb() -> None:
+    from deep_visual_slam_torch.slam.frontend import extract_features
+
+    train = load_config(CONFIG)["Train"]
+    H, W = 480, 640
+    frames, K, _, _ = synthetic_multidepth_sequence(
+        16, H, W, seed=100, step_translation=0.02, step_rotation=0.004
+    )
+    frames = (frames * 255).round().astype(np.uint8)
+    _profile(f"ORB extract_features {H}x{W} uint8 (upload, gray, ORB, copy back)",
+             lambda: extract_features(frames[0]), reps=10)
+    nets = Networks(dtype=getattr(torch, train["compute_dtype"]), seed=0)
+    vo = MonoVO(K, networks=nets, frontend="orb")
+    size = f"{H}x{W} uint8, bf16 networks, num_kf=7, max_points=256"
+    feed = iter(frames[i % len(frames)] for i in range(10 ** 6))
+    for _ in range(4):
+        vo.process_frame(next(feed))
+    score = vo.mp.check_key_frame
+    decision = {"keyframe": True}
+
+    def forced(frame, match_from_prev=None):
+        score(frame, match_from_prev)
+        return decision["keyframe"]
+
+    vo.mp.check_key_frame = forced
+
+    def step(want_keyframe):
+        def run():
+            n = vo.n_keyframes
+            vo.process_frame(next(feed))
+            if (vo.n_keyframes > n) != want_keyframe:
+                raise RuntimeError("the keyframe decision was not the forced one")
+        return run
+
+    _profile(f"ORB SLAM keyframe {size}", step(True), reps=10)
+    decision["keyframe"] = False
+    _profile(f"ORB SLAM non-keyframe {size}", step(False), reps=10)
+
+
 PATHS = {
     "train": _profile_train,
     "eval": _profile_eval,
@@ -365,6 +408,7 @@ PATHS = {
     "raft": _profile_raft,
     "depth_anything": _profile_depth_anything,
     "ddp": _profile_ddp,
+    "orb": _profile_orb,
 }
 
 

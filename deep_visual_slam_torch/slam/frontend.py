@@ -1,9 +1,13 @@
-"""Frame and Point bookkeeping of the SLAM loop (port of
-``slam/frontend.py:Point``/``Frame``).
+"""The ORB frontend and the Frame and Point bookkeeping of the SLAM loop
+(port of ``slam/frontend.py``).
 
-The ORB frontend (cv2 ORB and Lowe-ratio matching) is not ported: a
-``Frame`` needs its keypoints from the caller (the KLT frontend's track
-table). ``Frame.pose`` is the global camera-from-world transform ``T_cw``.
+``extract_features`` is ORB with 3000 features, 8 levels and scale 1.2, in
+PyTorch on the loop's device (``ops/orb.py``, which computes what the JAX
+package's cv2 ORB computes); ``match_descriptors`` is Lowe's ratio test
+(0.75), a Hamming threshold (32) and one match per descriptor on either
+side, on the device (``ops/matching.py``). A ``Frame`` built without
+``features`` runs ORB on its image. ``Frame.pose`` is the global
+camera-from-world transform ``T_cw``.
 """
 
 from __future__ import annotations
@@ -11,6 +15,53 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+
+from deep_visual_slam_torch import resolve_device
+from deep_visual_slam_torch.ops.matching import match_descriptors_device
+from deep_visual_slam_torch.ops.orb import detect_and_compute, rgb_to_gray
+
+
+def _gray_u8(image: torch.Tensor) -> torch.Tensor:
+    """RGB or gray, uint8 or float in [0, 1] -> uint8 ``[H, W]``: a float
+    image becomes ``uint8(clip(x, 0, 1) * 255)`` in its own precision (a
+    truncation, as the JAX package's numpy cast), then ``COLOR_RGB2GRAY``."""
+    if image.dim() == 4:
+        image = image[0]
+    if image.dtype != torch.uint8:
+        image = (image.clamp(0.0, 1.0) * 255).to(torch.uint8)
+    return rgb_to_gray(image) if image.dim() == 3 else image
+
+
+def extract_features(image, device=None) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """ORB keypoints and descriptors of an RGB (or gray) image, numpy or a
+    tensor, uint8 or float in [0, 1]: ``([N, 2] int32 (x, y), [N, 32]
+    uint8)``, or ``(zeros [0, 2], None)`` when there are none. A numpy image
+    goes to ``device`` (None: CUDA); a tensor stays where it is."""
+    if torch.is_tensor(image):
+        t = image
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(image)).to(resolve_device(device))
+    pts, _, _, _, des = detect_and_compute(_gray_u8(t))
+    if pts.shape[0] == 0:
+        return np.zeros((0, 2), np.int32), None
+    return pts.to(torch.int32).cpu().numpy(), des.cpu().numpy()
+
+
+def match_descriptors(
+    des1: Optional[np.ndarray], des2: Optional[np.ndarray], device=None
+) -> Tuple[List[int], List[int]]:
+    """Lowe-ratio 2-NN matching with one match per descriptor on either side
+    (the reference's ``slam/frontend.py:46-67``), on ``device`` (None:
+    CUDA): the query and train indices. None, or fewer than two descriptors
+    on a side, gives no match."""
+    if des1 is None or des2 is None or len(des1) < 2 or len(des2) < 2:
+        return [], []
+    return match_descriptors_device(des1, des2, device=device)
+
+
+def match_frame_kps(f1: "Frame", f2: "Frame", device=None) -> Tuple[List[int], List[int]]:
+    return match_descriptors(f1.des, f2.des, device=device)
 
 
 class Point:
@@ -42,8 +93,9 @@ class Point:
 class Frame:
     """One camera frame: image, network outputs, tracked keypoints.
 
-    ``features`` is ``(kps [N, 2] int (x, y), descriptors or None)``;
-    ``depth`` / ``uncertainty`` may be None on frames that do not fetch
+    ``features`` is ``(kps [N, 2] int (x, y), descriptors or None)``; without
+    it the frame runs ORB on its image on the map's device. ``depth`` /
+    ``uncertainty`` may be None on frames that do not fetch
     them. A non-keyframe stores its pose relative to its anchor keyframe
     (``set_anchor``), so BA corrections of the keyframe move it rigidly.
     """
@@ -58,11 +110,6 @@ class Frame:
         brightness_params: Tuple[float, float] = (1.0, 0.0),
         features: Optional[Tuple[np.ndarray, Optional[np.ndarray]]] = None,
     ):
-        if features is None:
-            raise NotImplementedError(
-                "Frame needs its keypoints: the ORB frontend (cv2) is not "
-                "ported yet; pass features=(kps, None) from the KLT frontend"
-            )
         self.id = map_.add_frame(self)
         self.image = np.asarray(image)
         # Writable copy: the BA write-back mutates keyframe depth.
@@ -73,7 +120,8 @@ class Frame:
         self.marginalize = False
         self.anchor = None  # keyframes: self; non-keyframes: last keyframe
         self.T_rel_anchor = None  # T_cw(self) @ inv(T_cw(anchor)) at creation
-        self.kps, self.des = features
+        # ``features`` lets the caller run ORB while the card is busy.
+        self.kps, self.des = features or extract_features(self.image, map_.device)
         self.pts: Dict[int, Point] = {}
 
         H, W = self.image.shape[:2]

@@ -1,21 +1,22 @@
-"""Keyframe map and the BA behind it, on the KLT path (port of
-``slam/map.py:Map``).
+"""Keyframe map and the BA behind it (port of ``slam/map.py:Map``).
 
 The map gathers a fixed-shape ``BAProblem`` (``num_kf`` keyframe slots x
-``max_points`` point slots, padded) from the KLT frontend's per-keyframe
-slot snapshots and runs the photometric BA pyramid on the device. The
-solve is pipelined: ``optimize`` queues it and returns; ``flush_ba``
-copies the result to the host frames and points when something reads
-them.
+``max_points`` point slots, padded) and runs the photometric BA pyramid on
+the device. On the KLT path the tracks come from the frontend's
+per-keyframe slot snapshots; on the ORB path from the walk over the
+points' observations (``keypoints``), longest tracks first. The solve is
+pipelined: ``optimize`` queues it and returns; ``flush_ba`` copies the
+result to the host frames and points when something reads them.
+
+The ORB keyframe policy (``check_add_key_frame``) scores ``0.6 f + 0.4 ft >
+1`` over the descriptor matches with the last keyframe, with the rotation
+flow removed through ``K R K^-1`` when ``intrinsic3`` is set (the reference
+applies a bare ``R`` to pixels, which ``Map()`` without it keeps).
 
 ``global_bundle_adjustment`` solves over the whole keyframe history,
 marginalized keyframes included, with the track-banded solver of
 ``slam/global_ba.py``. Its shapes are padded to buckets (``_F_BUCKETS``,
 ``_P_BUCKETS``), so a growing trajectory meets few distinct shapes.
-
-Not ported yet: the descriptor-matching keyframe policy
-(``check_add_key_frame``/``check_key_frame``) and the ``keypoints()``
-track walk, both on the ORB path.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 
 from deep_visual_slam_torch import resolve_device
 from deep_visual_slam_torch.slam.ba import BAProblem, photometric_ba_pyramid
-from deep_visual_slam_torch.slam.frontend import Frame, Point
+from deep_visual_slam_torch.slam.frontend import Frame, Point, match_frame_kps
 from deep_visual_slam_torch.slam.global_ba import (
     GlobalBAProblem,
     photometric_ba_global_pyramid,
@@ -79,6 +80,9 @@ class Map:
         self._zero_img_cache: Optional[torch.Tensor] = None
         # In-flight windowed BA: (window, points, poses, depths) on the device.
         self._pending_ba = None
+        # 3x3 intrinsics of the ORB keyframe score's rotation homography
+        # K R K^-1 (MonoVO sets them); None keeps the reference's bare R.
+        self.intrinsic3: Optional[np.ndarray] = None
 
     # ------------------------------------------------------------- registry
     def add_frame(self, frame) -> int:
@@ -94,6 +98,43 @@ class Map:
         return ret
 
     # ----------------------------------------------------------- keyframes
+    def check_add_key_frame(self, frame: Frame, match_from_prev=None) -> bool:
+        """The ORB keyframe policy: frame 0, or a score over 1, makes a
+        keyframe (registered, the window's head flagged when full); another
+        frame is anchored to the last keyframe. ``match_from_prev`` is the
+        ``(prev, cur)`` match already made, reused when the last keyframe is
+        the previous frame."""
+        key_frame = frame.id == 0 or self.check_key_frame(frame, match_from_prev)
+        if key_frame:
+            self.register_keyframe(frame)
+        elif self.keyframes:
+            frame.set_anchor(self.keyframes[-1])
+        return key_frame
+
+    def check_key_frame(self, frame: Frame, match_from_prev=None) -> bool:
+        """``0.6 f + 0.4 ft > 1``: ``f`` the RMS displacement of the matched
+        keypoints against the last keyframe, ``ft`` the same after the
+        relative rotation's homography; no match forces a keyframe."""
+        last_kf = self.keyframes[-1]
+        if match_from_prev is not None and len(self.frames) >= 2 and last_kf is self.frames[-2]:
+            l1, l2 = match_from_prev
+        else:
+            l1, l2 = match_frame_kps(last_kf, frame, device=self.device)
+        if not l1:
+            return True
+        homography = last_kf.pose[:3, :3] @ np.linalg.inv(frame.pose[:3, :3])
+        if self.intrinsic3 is not None:
+            homography = self.intrinsic3 @ homography @ np.linalg.inv(self.intrinsic3)
+        p1 = np.asarray(last_kf.kps)[l1].astype(np.float64)
+        p2 = np.asarray(frame.kps)[l2].astype(np.float64)
+        f = np.sum(np.sum((p1 - p2) ** 2, axis=1))
+        h = homography
+        q = [h[r, 0] * p2[:, 0] + h[r, 1] * p2[:, 1] + h[r, 2] for r in range(3)]
+        ft = np.cumsum((p1[:, 0] - q[0] / q[2]) ** 2 + (p1[:, 1] - q[1] / q[2]) ** 2)[-1]
+        f = np.sqrt(f / len(l1))
+        ft = np.sqrt(ft / len(l1))
+        return bool(0.6 * f + 0.4 * ft > 1.0)
+
     def register_keyframe(self, frame: Frame) -> None:
         """Append a keyframe to the window, flagging the head for
         marginalization when the window is full."""
@@ -108,6 +149,24 @@ class Map:
         anchor keyframe's BA-corrected pose."""
         self.flush_ba()
         return [f.current_pose() for f in self.frames]
+
+    def keypoints(self, frames: Optional[List[Frame]] = None) -> Dict[Point, List[Tuple[Frame, int]]]:
+        """Valid points seen in two or more of ``frames`` (the keyframe
+        window by default), with their ``(frame, keypoint index)``
+        observations there, in the order of the frames' points."""
+        frames = self.keyframes if frames is None else frames
+        frame_set = set(id(f) for f in frames)
+        out: Dict[Point, List[Tuple[Frame, int]]] = {}
+        seen = set()
+        for f in frames:
+            for pt in f.pts.values():
+                if not pt.valid or id(pt) in seen:
+                    continue
+                seen.add(id(pt))
+                local = [(fr, idx) for fr, idx in zip(pt.frames, pt.idxs) if id(fr) in frame_set]
+                if len(local) > 1:
+                    out[pt] = local
+        return out
 
     # ------------------------------------------------------------- backend
     def _device_image(self, f: Frame) -> torch.Tensor:
@@ -191,6 +250,44 @@ class Map:
         points = [self.points[u] for u in uids[order]]
         return points, uv, host_f.astype(np.int32), depth, unc, obs_full[order]
 
+    def _gather_tracks_walk(self, frames: List[Frame], max_points: int, window: bool = True):
+        """Track gather by walking the points' observations (ORB frames):
+        the same tuple as ``_gather_tracks_fast``, longest tracks first in a
+        stable sort. ``window=True`` walks ``keypoints(frames)`` (valid
+        points, in the frames' order); ``window=False`` walks every point of
+        the map, retired ones included, in creation order (global BA). A
+        track's host is its first observation among ``frames``."""
+        if window:
+            items = list(self.keypoints(frames).items())
+        else:
+            frame_set = set(id(f) for f in frames)
+            items = []
+            for pt in self.points:
+                local = [(fr, idx) for fr, idx in zip(pt.frames, pt.idxs) if id(fr) in frame_set]
+                if len(local) > 1:
+                    items.append((pt, local))
+        if not items:
+            return [], None, None, None, None, None
+        items.sort(key=lambda kv: -len(kv[1]))
+        items = items[:max_points]
+        frame_index = {id(f): i for i, f in enumerate(frames)}
+        n = len(items)
+        uv = np.zeros((n, 2), np.float32)
+        host = np.zeros(n, np.int32)
+        depth = np.empty(n, np.float32)
+        unc = np.empty(n, np.float32)
+        obs = np.zeros((n, len(frames)), bool)
+        for i, (pt, local) in enumerate(items):
+            host_frame, host_kp = local[0]
+            x, y = host_frame.kps[host_kp]
+            uv[i] = (x, y)
+            host[i] = frame_index[id(host_frame)]
+            depth[i] = host_frame.depth[y, x]
+            unc[i] = host_frame.uncertainty[y, x]
+            for fr, _ in local:
+                obs[i, frame_index[id(fr)]] = True
+        return [pt for pt, _ in items], uv, host, depth, unc, obs
+
     def _build_problem(
         self,
         intrinsic: np.ndarray,
@@ -207,13 +304,11 @@ class Map:
         H, W = frames[0].image.shape[:2]
         P = max_points
 
-        fast = self._gather_tracks_fast(frames, max_points)
-        if fast is None:
-            raise NotImplementedError(
-                "window frames without KLT slot snapshots: the ORB track walk "
-                "(Map.keypoints) is not ported yet"
-            )
-        points, t_uv, t_host, t_depth, t_unc, t_obs = fast
+        gathered = self._gather_tracks_fast(frames, max_points)
+        walked = gathered is None
+        if walked:
+            gathered = self._gather_tracks_walk(frames, max_points)
+        points, t_uv, t_host, t_depth, t_unc, t_obs = gathered
         if not points:
             return None
         n = len(points)
@@ -226,7 +321,10 @@ class Map:
         host_idx[:n] = t_host
         depths[:n] = np.maximum(0.01, t_depth)
         obs[:n, :F_real] = t_obs
-        weight[:n] = self.alpha**2 / (self.alpha**2 + np.sqrt(np.abs(t_unc)) ** 2)
+        # The JAX package weighs walked tracks in float64, slot tracks in
+        # float32.
+        unc = t_unc.astype(np.float64) if walked else t_unc
+        weight[:n] = self.alpha**2 / (self.alpha**2 + np.sqrt(np.abs(unc)) ** 2)
 
         images = tuple(self._device_image(f) for f in frames)
         # One dtype across the window: the solve scales uint8 by 1/255 by
@@ -338,13 +436,11 @@ class Map:
 
         Returns ``(points, host_uv [n, 2], host_idx [n], depth [n], weight
         [n], obs_off [n, _GLOBAL_OFFSETS])``, longest tracks first, or None
-        when no track spans two keyframes."""
+        when no track spans two keyframes. KLT keyframes give their slot
+        snapshots, ORB keyframes the walk over every point's observations."""
         gathered = self._gather_tracks_fast(kfs, self._GLOBAL_POINTS, window=False)
         if gathered is None:
-            raise NotImplementedError(
-                "keyframes without KLT slot snapshots: the ORB track walk of "
-                "global BA is not ported yet"
-            )
+            gathered = self._gather_tracks_walk(kfs, self._GLOBAL_POINTS, window=False)
         points, uv, host_f, depth, unc, obs = gathered
         if not points:
             return None

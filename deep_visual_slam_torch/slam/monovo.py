@@ -1,4 +1,4 @@
-"""The per-frame SLAM loop: DepthNet + PoseNet inference, the KLT
+"""The per-frame SLAM loop: DepthNet + PoseNet inference, the KLT or ORB
 frontend and the windowed photometric BA (port of ``slam/monovo.py``).
 
 ``Networks.step`` runs the two networks with their own stems; the JAX
@@ -18,7 +18,13 @@ import torch
 from deep_visual_slam_torch import resolve_device
 from deep_visual_slam_torch.models import DepthNet, PoseNet
 from deep_visual_slam_torch.ops import disp_to_depth, transformation_from_parameters
-from deep_visual_slam_torch.slam.frontend import Frame
+from deep_visual_slam_torch.slam.frontend import (
+    Frame,
+    Point,
+    extract_features,
+    match_descriptors,
+    match_frame_kps,
+)
 from deep_visual_slam_torch.slam.klt_frontend import KLTFrontend
 from deep_visual_slam_torch.slam.map import Map
 
@@ -170,16 +176,20 @@ class Networks:
 
 
 class MonoVO:
-    """The monocular SLAM loop with the KLT frontend: per frame, one
-    network + LK step on the device, the keyframe decision on the host, and
-    at keyframes the tracks' bookkeeping, corner refill and a windowed BA
-    (pipelined: it lands at the next frame).
+    """The monocular SLAM loop.
+
+    ``frontend="klt"`` (default): per frame, one network + LK step on the
+    device, the keyframe decision on the host, and at keyframes the tracks'
+    bookkeeping, corner refill and a windowed BA (pipelined: it lands at the
+    next frame). ``frontend="orb"``: the networks run on the device while
+    ORB and the match against the previous frame run beside them (on their
+    own CUDA stream on a card), then the keyframe score over the matches,
+    the point tracks, and at keyframes the windowed BA.
 
     ``networks`` defaults to random-weight bf16 ``Networks`` on ``device``
-    (None means CUDA and raises without a card). ``frontend="orb"`` raises:
-    the ORB frontend needs cv2 and is not ported. ``fetch_depth=False``
-    leaves non-keyframes' depth on the device (``process_frame`` returns
-    None for it).
+    (None means CUDA and raises without a card). ``fetch_depth=False``
+    (KLT only) leaves non-keyframes' depth on the device (``process_frame``
+    returns None for it).
     """
 
     def __init__(
@@ -198,11 +208,7 @@ class MonoVO:
         huber_delta: float = 0.11,
         device=None,
     ):
-        if frontend == "orb":
-            raise NotImplementedError(
-                "the ORB frontend (cv2 ORB and matching) is not ported yet; use frontend='klt'"
-            )
-        if frontend != "klt":
+        if frontend not in ("klt", "orb"):
             raise ValueError(f"unknown frontend {frontend!r} (klt|orb)")
         self.device = resolve_device(device)
         self.intrinsic = np.asarray(intrinsic)
@@ -212,6 +218,8 @@ class MonoVO:
             estimate_affine=estimate_affine, huber_delta=huber_delta,
             device=self.device,
         )
+        # K R K^-1 for the ORB keyframe score's rotation homography.
+        self.mp.intrinsic3 = self.intrinsic[:3, :3]
         self.nn = networks or Networks(device=self.device)
         # Cumulative wall time per stage, in seconds.
         self.timings = {"networks": 0.0, "frontend": 0.0, "detect": 0.0, "backend_ba": 0.0}
@@ -219,9 +227,15 @@ class MonoVO:
         self._prev_dev = None  # previous frame, on the device
         self._zero_unc = None  # shared read-only zero uncertainty map
         self.fetch_depth = fetch_depth
-        self.klt = KLTFrontend(
-            self.nn, image_shape, self.intrinsic, max_tracks=max_points, device=self.device,
-        )
+        self.frontend_kind = frontend
+        self.klt: Optional[KLTFrontend] = None
+        self._orb_stream = None
+        if frontend == "klt":
+            self.klt = KLTFrontend(
+                self.nn, image_shape, self.intrinsic, max_tracks=max_points, device=self.device,
+            )
+        elif self.device.type == "cuda":
+            self._orb_stream = torch.cuda.Stream(self.device)
 
     def _zero_uncertainty(self, shape) -> np.ndarray:
         """Shared read-only zero uncertainty map for keyframes without one."""
@@ -247,11 +261,15 @@ class MonoVO:
         ``oracle_depth`` / ``oracle_rel`` replace this frame's network depth
         map / relative prev->cur pose, and ``oracle_uncertainty`` injects its
         uncertainty map: the hooks that evaluate the backend from a
-        controlled initialization.
+        controlled initialization (KLT frontend only).
         """
-        return self._process_frame_klt(
-            frame, optimize, oracle_depth, oracle_rel, oracle_uncertainty
-        )
+        if self.klt is not None:
+            return self._process_frame_klt(
+                frame, optimize, oracle_depth, oracle_rel, oracle_uncertainty
+            )
+        if oracle_depth is not None or oracle_rel is not None or oracle_uncertainty is not None:
+            raise ValueError("oracle injection requires the KLT frontend")
+        return self._process_frame_orb(frame, optimize)
 
     def _process_frame_klt(
         self,
@@ -340,6 +358,113 @@ class MonoVO:
             self.klt.drop_dead_points()
             self.timings["backend_ba"] += time.perf_counter() - t2
         return depth, f.uncertainty, f.pose, a, b
+
+    def _features(self, image):
+        """ORB of the frame (the uploaded tensor, or a float64 host image),
+        on the ORB stream when there is one (the networks queued on the
+        default stream run beside it)."""
+        if self._orb_stream is None:
+            return extract_features(image, self.device)
+        with torch.cuda.stream(self._orb_stream):
+            return extract_features(image, self.device)
+
+    def _process_frame_orb(self, frame: np.ndarray, optimize: bool = True):
+        """The ORB step: the network step is queued on the device, ORB and
+        the match against the previous frame run meanwhile, then the depth
+        and pose come to the host. With pipelined BA the returned pose is
+        the network-chained one; the BA's correction lands at the next
+        read."""
+        t0 = time.perf_counter()
+        cur_dev = self.nn.to_device(frame)
+        first = len(self.mp.frames) == 0
+        if self._orb_stream is not None:
+            # ORB reads the upload, and only the upload: wait for it before
+            # the network step is queued behind it.
+            self._orb_stream.wait_stream(torch.cuda.current_stream(self.device))
+        if not first:
+            pending = self.nn.step_async(self._prev_dev, cur_dev)
+        self._prev_dev = cur_dev
+
+        # A float64 frame goes to gray in float64, as the JAX package's numpy.
+        host = np.asarray(frame)
+        feats = self._features(host if host.dtype == np.float64 else cur_dev)
+        match = None if first else match_descriptors(
+            self.mp.frames[-1].des, feats[1], device=self.device
+        )
+
+        net_unc = None
+        if first:
+            depth, net_unc = self.nn.depth_unc(cur_dev)
+            pose_global = np.eye(4)
+        else:
+            depth = pending[0][0].cpu().numpy()
+            if pending[1] is not None:
+                net_unc = pending[1][0].cpu().numpy()
+            rel = pending[2][0].cpu().numpy().astype(np.float64)
+            # Land the in-flight BA before chaining (see the KLT path).
+            self.mp.flush_ba()
+            pose_global = rel @ self.mp.frames[-1].current_pose()
+        uncertainty = net_unc if net_unc is not None else np.zeros_like(depth)
+        a, b = 1.0, 0.0
+        t1 = time.perf_counter()
+        self.timings["networks"] += t1 - t0
+
+        is_kf = self.frontend(
+            frame, depth, uncertainty, pose_global, (a, b),
+            features=feats, match_from_prev=match,
+        )
+        # The uploaded frame serves the BA (a = 1, b = 0).
+        self.mp.register_device_image(self.mp.frames[-1].id, cur_dev[0])
+        t2 = time.perf_counter()
+        self.timings["frontend"] += t2 - t1
+        if not is_kf:
+            return depth, uncertainty, self.mp.frames[-1].pose, a, b
+
+        self.n_keyframes += 1
+        if optimize:
+            self.mp.optimize(self.intrinsic)
+            self.timings["backend_ba"] += time.perf_counter() - t2
+        return depth, uncertainty, self.mp.frames[-1].pose, a, b
+
+    def frontend(
+        self,
+        frame,
+        depth,
+        uncertainty,
+        pose,
+        brightness_params,
+        features=None,
+        match_from_prev=None,
+    ) -> bool:
+        """The ORB frame's bookkeeping: match it to the previous frame
+        (unless ``match_from_prev`` carries that match), extend the previous
+        frame's points or start new ones, and decide on a keyframe. True
+        when it added a keyframe other than frame 0 (the backend's cue)."""
+        f = Frame(self.mp, frame, depth, uncertainty, pose, brightness_params, features=features)
+        if f.id == 0:
+            self.mp.check_add_key_frame(f)
+            return False
+
+        prev_f = self.mp.frames[-2]
+        # One match per frame, in (prev, cur) order, which the keyframe
+        # score reuses when the last keyframe is the previous frame.
+        if match_from_prev is not None:
+            l_prev, l_cur = match_from_prev
+        else:
+            l_prev, l_cur = match_frame_kps(prev_f, f, device=self.device)
+        for idx1, idx2 in zip(l_cur, l_prev):
+            if idx1 in f.pts:
+                continue
+            if idx2 in prev_f.pts:
+                pt = prev_f.pts[idx2]
+                if pt.valid and f not in pt.frames:
+                    pt.add_observation(f, idx1)
+            else:
+                pt = Point(self.mp)
+                pt.add_observation(f, idx1)
+                pt.add_observation(prev_f, idx2)
+
+        return self.mp.check_add_key_frame(f, match_from_prev=(l_prev, l_cur))
 
     def trajectory(self) -> np.ndarray:
         """Camera-to-world poses of all frames ([N, 4, 4]): keyframes at

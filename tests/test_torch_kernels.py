@@ -24,12 +24,15 @@ fourth level is 1x1, with targets up to 12 pixels off the grid: atol 1e-4 on
 correlations up to ~5 (the kernel dots before it blends and sums in another
 order; 4.6e-5 measured at D = 128).
 
-Depth-Anything-V2 (vits, 56x84) and the ORB matcher run no kernel of the
-port's own; their card checks sit here because this file needs no JAX.
+Depth-Anything-V2 (vits, 56x84), the ORB matcher and ORB itself run no
+kernel of the port's own; their card checks sit here because this file
+needs no JAX (nor cv2).
 The model in fp32 on the card (TF32 off) against the CPU within
 ``DA_CARD_ATOL`` m, and
 bf16 under autocast against the card's fp32 by relative error; the
-matcher's lists on the card equal the CPU's.
+matcher's lists on the card equal the CPU's; ORB's keypoints, angles,
+responses and descriptors on the card equal the CPU's bit for bit (integer
+and IEEE elementwise arithmetic only, see ``ops/orb.py``).
 """
 
 import pytest
@@ -303,3 +306,27 @@ def test_synced_batch_norm_on_card_matches_cpu(cuda_device):
                                                  bn.running_mean, bn.running_var)])
     for want, got in zip(*runs):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_orb_on_card_matches_cpu(cuda_device):
+    """ORB of a 480x640 render of the SLAM fixture and of a 96x128 one, on
+    the card and on the CPU: equal outputs; ``extract_features`` of the
+    float frame the same way."""
+    import numpy as np
+
+    from deep_visual_slam_torch.data import synthetic_multidepth_sequence
+    from deep_visual_slam_torch.ops import orb
+    from deep_visual_slam_torch.slam import frontend
+
+    for H, W in ((480, 640), (96, 128)):
+        rgb = synthetic_multidepth_sequence(1, H, W, seed=100)[0][0]
+        gray = orb.rgb_to_gray(torch.from_numpy((np.clip(rgb, 0, 1) * 255).astype(np.uint8)))
+        cpu = orb.detect_and_compute(gray)
+        card = orb.detect_and_compute(gray.to(cuda_device))
+        assert cpu[0].shape[0] > 50
+        for a, b in zip(cpu, card):
+            assert torch.equal(a, b.cpu())
+        kc, dc = frontend.extract_features(rgb, device="cpu")
+        kg, dg = frontend.extract_features(rgb, device=cuda_device)
+        assert np.array_equal(kc, kg) and np.array_equal(dc, dg)

@@ -267,8 +267,9 @@ def _assert_close(got, want):
 def test_ba_ablation_entry_point(tmp_path):
     """``python3 -m deep_visual_slam_torch.ba_ablation`` at 48x64 on the CPU
     writes the three configurations' numbers; ``--vo_ckpt`` of a directory
-    with no checkpoint says so, and ``--frontend orb`` names what is not
-    ported."""
+    with no checkpoint says so; ``--frontend orb`` runs the ORB loop (96x128,
+    4 frames) and refuses the oracle init, which only the KLT frontend
+    takes."""
     out = tmp_path / "ablation.json"
     ba_ablation.main(["--init", "oracle", "--frames", "6", "--size", "64", "96", "--seeds", "100",
                       "--device", "cpu", "--out_json", str(out)])
@@ -279,8 +280,15 @@ def test_ba_ablation_entry_point(tmp_path):
         assert m["keyframes"] >= 3 and np.isfinite(m["kf_ate_rmse"])
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         ba_ablation.main(["--vo_ckpt", str(tmp_path / "no_run"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ORB"):
-        ba_ablation.main(["--frontend", "orb", "--device", "cpu"])
+    out = tmp_path / "ablation_orb.json"
+    ba_ablation.main(["--frontend", "orb", "--frames", "4", "--size", str(H), str(W),
+                      "--seeds", "100", "--device", "cpu", "--out_json", str(out)])
+    record = json.loads(out.read_text())
+    assert record["provenance"]["frontend"] == "orb"
+    for m in record["per_scene"]["100"].values():
+        assert m["keyframes"] >= 2 and np.isfinite(m["ate_rmse"])
+    with pytest.raises(SystemExit):
+        ba_ablation.main(["--frontend", "orb", "--init", "oracle", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("align", [True, False])
@@ -352,13 +360,17 @@ def test_anchored_pose_propagation():
 def test_entry_points_refuse_what_is_not_there():
     """``device=None`` means CUDA: without a card ``MonoVO`` and
     ``KLTFrontend`` raise instead of running on the CPU. The ORB frontend
-    is not ported: ``frontend="orb"`` and a ``Frame`` without keypoints
-    raise."""
+    is there: ``frontend="orb"`` builds a loop without a KLT frontend, and a
+    ``Frame`` without keypoints runs ORB on its image (a blank one has
+    none)."""
     K = synthetic.default_intrinsics(H, W)
-    with pytest.raises(NotImplementedError, match="ORB"):
-        MonoVO(K, frontend="orb", device="cpu")
-    with pytest.raises(NotImplementedError, match="ORB"):
-        Frame(Map(device="cpu"), np.zeros((H, W, 3)), None, None, np.eye(4))
+    vo = MonoVO(K, networks=Networks(dtype=torch.float32, device="cpu"), frontend="orb",
+                device="cpu")
+    assert vo.klt is None and vo.frontend_kind == "orb"
+    f = Frame(Map(device="cpu"), np.zeros((H, W, 3)), None, None, np.eye(4))
+    assert f.kps.shape == (0, 2) and f.des is None
+    with pytest.raises(ValueError, match="frontend"):
+        MonoVO(K, frontend="sift", device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None resolves to it")
     with pytest.raises(RuntimeError, match="CUDA"):
