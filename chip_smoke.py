@@ -92,12 +92,17 @@ the run with a non-zero exit code and no result line:
 12. RAFT, FlowPoseNet and the Redwood evaluation, fp32 (TF32 off). (a)
    Kernel K2, the on-demand windowed correlation lookup, against its plain
    version and the dense route at SmallRAFT's B=16 [16, 60, 80, 128], r=3,
-   BasicRAFT's B=1 D=256, r=4, and a case whose fourth level is 1x1, with
-   targets up to 12 px off the grid: max abs difference, ms of K2 (with
-   those targets, a smooth flow and zero flow), of the plain version, of
-   the dense route and of its lookup alone, the bound; at SmallRAFT's shape
-   also fmap1's rows off their 16-byte alignment (the kernel's scalar
-   form). (b) SmallRAFT and BasicRAFT (``memory_efficient``) on the card
+   BasicRAFT's B=1 D=256, r=4, and cases whose fourth level is 1x1, with
+   targets up to 12 px off the grid, a smooth flow (also past the map's
+   edges) and both in one launch (8x8 tiles alternating): max abs
+   difference, the share of tiles that stage their box by level, ms of K2
+   (random targets, a smooth flow, zero flow), of the plain version, of
+   the dense route and of its lookup alone, the bound; at SmallRAFT's
+   shape also fmap1's rows off their 16-byte alignment (the kernel's scalar
+   form); and K2 on the 12 iterations' coords1 of a SmallRAFT B=16 480x640
+   forward (RAFT's own targets), timed and held to the plain lookup and
+   the dense route on unit-scale features and to the plain lookup in
+   float64 on RAFT's own features. (b) SmallRAFT and BasicRAFT (``memory_efficient``) on the card
    against the CPU at 128x160, 3 iterations. (c) SmallRAFT at 480x640, 12
    iterations, B=1 and B=16, and BasicRAFT at B=1, dense and by the card's
    default route (K2): the two routes' final flows, ms per forward, K2
@@ -121,8 +126,8 @@ the run with a non-zero exit code and no result line:
    reference-named ``.pth``) over 4 of phase 7b's frames served from
    memory, writing under ``build/phase13`` (deleted): each PNG, decoded
    here with zlib, equals the depth the model returned, in mm. (d)
-   ``match_descriptors_device`` at 3000 x 3000 planted descriptors: the
-   card's lists equal the CPU's; ms per call split into the host's unpack,
+   ``match_descriptors_device`` at 3000 x 3000 planted descriptors, and at
+   3100 x 3100 above its capacity: the card's lists equal the CPU's; ms per call split into the host's unpack,
    the device and the host's greedy pass. (e) ``make_vo_train_step`` at
    ``configs/vo.yaml`` (B=16 x 480x640 bf16) under DDP at world size 1
    (NCCL, BatchNorm synced) against the unwrapped step from the same
@@ -402,6 +407,7 @@ BF16_PEAK = {
 }
 # (d) ORB's nfeatures against the matcher's capacity.
 MATCH_N, MATCH_REPS = 3000, 20
+MATCH_OVER_N = 3100  # over the matcher's capacity of 3072
 # (e) DDP at world size 1 against phase 6's unwrapped step from the same
 # weights, batch and generator. Losses within RESUME_RTOL relative (phase
 # 9b's bound for the card's step; measured 8.0e-4). A first Adam step moves
@@ -1724,18 +1730,44 @@ def phase_export(k1, card):
     print(f"  phase {time.perf_counter() - start_phase:.1f} s")
 
 
-def _k2_case(B, H, W, D, radius, seed):
-    """Kernel K2's inputs at a RAFT shape: fmap1, the 4 pooled fmap2 levels,
-    fmap2 and ``coords_grid + U(-12, 12)``, so that taps leave the map."""
+def _k2_case(B, H, W, D, radius, seed, flow="random"):
+    """Kernel K2's inputs at a RAFT shape: fmap1, fmap2, the 4 pooled fmap2
+    levels and ``coords_grid`` plus a flow: ``random`` U(-12, 12) a pixel,
+    so that taps leave the map and tiles' windows diverge; ``smooth`` one
+    shift for every pixel, as RAFT's targets are; ``edges`` a smooth flow out
+    of the map's centre, up to ~4 px past every edge; ``mixed`` the 8x8 tiles
+    of the kernel's tiled form alternating ``smooth`` and ``random``."""
     from deep_visual_slam_torch.models.raft import coords_grid
+    from deep_visual_slam_torch.ops import correlation_cuda as k2
     from deep_visual_slam_torch.ops.correlation import build_corr_pyramid
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     f1 = torch.randn((B, H, W, D), device="cuda", generator=g)
     f2 = torch.randn((B, H, W, D), device="cuda", generator=g)
-    coords = coords_grid(B, H, W, "cuda") + 24 * torch.rand(
-        (B, H, W, 2), device="cuda", generator=g) - 12
+    grid = coords_grid(B, H, W, "cuda")
+    noise = 24 * torch.rand((B, H, W, 2), device="cuda", generator=g) - 12
+    shift = torch.tensor([3.3, -2.7], device="cuda")
+    if flow == "random":
+        coords = grid + noise
+    elif flow == "smooth":
+        coords = grid + shift
+    elif flow == "edges":
+        centre = torch.tensor([(W - 1) / 2, (H - 1) / 2], device="cuda")
+        coords = grid + 0.1 * (grid - centre) + torch.tensor([0.37, -0.21], device="cuda")
+    else:  # "mixed"
+        tile = k2.TILE
+        checker = ((grid[..., :1] // tile + grid[..., 1:] // tile) % 2) == 1
+        coords = grid + torch.where(checker, noise, shift)
     return f1, f2, build_corr_pyramid(f1, f2, 4, memory_efficient=True)[2], coords
+
+
+def _staged_shares(coords, levels, radius) -> str:
+    """The share of tiles that stage their union box, by level (K2's tiled
+    form, ``correlation_cuda.tile_plan``)."""
+    from deep_visual_slam_torch.ops import correlation_cuda as k2
+
+    plan = k2.tile_plan(coords, [t.shape[1:3] for t in levels], radius)
+    return " / ".join(f"{p['staged'].float().mean().item():.3f}" for p in plan)
 
 
 def k2_work(f1, levels, coords, radius):
@@ -1846,13 +1878,19 @@ def phase_raft(k1, rates, card, kept):
     shutil.rmtree(root, ignore_errors=True)
     lookup = k2.windowed_correlation
 
-    # (a) K2 against the plain lazy lookup and the dense route.
+    # (a) K2 against the plain lazy lookup and the dense route. The tiled
+    # form takes D = 128 and 256 (aligned rows); D = 16 the per-pixel form.
     max_err, row = 0.0, None
-    for label, shape in (("SmallRAFT B=16", (16, 60, 80, 128, 3)),
-                         ("BasicRAFT B=1", (1, 60, 80, 256, 4)),
-                         ("a 1x1 fourth level", (2, 9, 13, 16, 3))):
+    for label, shape, flow in (
+            ("SmallRAFT B=16", (16, 60, 80, 128, 3), "random"),
+            ("SmallRAFT B=16, half the tiles smooth", (16, 60, 80, 128, 3), "mixed"),
+            ("SmallRAFT B=16, a smooth flow past the edges", (16, 60, 80, 128, 3), "edges"),
+            ("BasicRAFT B=1", (1, 60, 80, 256, 4), "random"),
+            ("BasicRAFT B=1, a smooth flow", (1, 60, 80, 256, 4), "smooth"),
+            ("a 1x1 fourth level", (2, 9, 13, 16, 3), "random"),
+            ("a 1x1 fourth level, tiled", (2, 9, 13, 128, 3), "smooth")):
         B, H1, W1, D, r = shape
-        f1, f2, levels, coords = _k2_case(B, H1, W1, D, r, seed=len(label))
+        f1, f2, levels, coords = _k2_case(B, H1, W1, D, r, seed=len(label), flow=flow)
         with torch.no_grad():
             out = lookup(f1, levels, coords, r)
             torch.cuda.synchronize()
@@ -1865,10 +1903,11 @@ def phase_raft(k1, rates, card, kept):
               f"K2 {label}: {err:.2e} from the plain lookup, {err_dense:.2e} from the dense")
         max_err = max(max_err, err, err_dense)
         sizes = ", ".join(f"{t.shape[1]}x{t.shape[2]}" for t in levels)
-        msg = (f"  (a) {label} [{B},{H1},{W1},{D}] r={r}, levels {sizes}: max |K2 - plain| "
-               f"{err:.3e}, |K2 - dense| {err_dense:.3e} (tolerance {K2_TOL:.0e}; values up "
-               f"to {plain.abs().max().item():.2f})")
-        if B == 1 or B == 16:
+        msg = (f"  (a) {label} [{B},{H1},{W1},{D}] r={r}, {flow} targets, levels {sizes}: "
+               f"max |K2 - plain| {err:.3e}, |K2 - dense| {err_dense:.3e} (tolerance "
+               f"{K2_TOL:.0e}; values up to {plain.abs().max().item():.2f}); staged tiles by "
+               f"level {_staged_shares(coords, levels, r)}")
+        if flow == "random" and B in (1, 16):
             with torch.no_grad():
                 ms = cuda_ms(lambda: lookup(f1, levels, coords, r), 20)
                 plain_ms = cuda_ms(
@@ -1882,21 +1921,22 @@ def phase_raft(k1, rates, card, kept):
                 # A smooth flow (one shift for every pixel), as RAFT's
                 # targets are, and zero flow: neighbouring windows overlap.
                 grid = coords_grid(B, H1, W1, "cuda")
+                smooth = grid + torch.tensor([3.3, -2.7], device="cuda")
                 smooth_ms, zero_ms = (
-                    cuda_ms(lambda c=c: lookup(f1, levels, c, r), 20)
-                    for c in (grid + torch.tensor([3.3, -2.7], device="cuda"), grid))
+                    cuda_ms(lambda c=c: lookup(f1, levels, c, r), 20) for c in (smooth, grid))
             nbytes, ops = k2_work(f1, levels, coords, r)
             bytes_ms, ops_ms = nbytes / rates[0] * 1e3, ops / rates[1] * 1e3
-            msg += (f"; {card}: K2 {ms:.4f} ms ({smooth_ms:.4f} ms with a smooth flow, "
-                    f"{zero_ms:.4f} ms with zero flow), plain {plain_ms:.4f} ms, dense route "
-                    f"(pyramid and lookup) {dense_ms:.4f} ms, its lookup alone {lookup_ms:.4f} "
-                    f"ms (20, 2, 5 and 5 calls back to back between CUDA events, median of 5); "
-                    f"bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes / 1e6:.1f} MB at "
-                    f"{rates[0] / 1e12:.2f} TB/s takes {bytes_ms:.4f}; {ops / 1e9:.3f} GFLOP "
-                    f"fp32 {ops_ms:.4f})")
+            msg += (f"; smooth {_staged_shares(smooth, levels, r)}, zero flow "
+                    f"{_staged_shares(grid, levels, r)}; {card}: K2 {ms:.4f} ms ({smooth_ms:.4f} "
+                    f"ms with a smooth flow, {zero_ms:.4f} ms with zero flow), plain "
+                    f"{plain_ms:.4f} ms, dense route (pyramid and lookup) {dense_ms:.4f} ms, its "
+                    f"lookup alone {lookup_ms:.4f} ms (20, 2, 5 and 5 calls back to back between "
+                    f"CUDA events, median of 5); bound {max(bytes_ms, ops_ms):.4f} ms "
+                    f"({nbytes / 1e6:.1f} MB at {rates[0] / 1e12:.2f} TB/s takes {bytes_ms:.4f}; "
+                    f"{ops / 1e9:.3f} GFLOP fp32 {ops_ms:.4f})")
             if B == 16:
                 # fmap1's rows one float off their 16-byte alignment: the
-                # kernel's scalar form.
+                # kernel's scalar per-pixel form.
                 f1_off = torch.empty(f1.numel() + 1, device="cuda")[1:].view(f1.shape)
                 f1_off.copy_(f1)
                 with torch.no_grad():
@@ -1915,13 +1955,81 @@ def phase_raft(k1, rates, card, kept):
                     "launches": None,
                     "max_abs_err": None,
                     "ms": ms,
+                    "ms_smooth": smooth_ms,
+                    "ms_zero": zero_ms,
+                    "ms_raft_targets": None,
                     "plain_ms": plain_ms,
                     "bound_ms": max(bytes_ms, ops_ms),
                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                     "library_ms": dense_ms,
                 }
+            del grid, smooth
         print(msg)
         del f1, f2, levels, coords, out, plain, dense
+    torch.cuda.empty_cache()
+
+    # RAFT's own targets: the 12 iterations' coords1 of one SmallRAFT B=16
+    # forward at 480x640 on phase 7b's frames (the weights of (c)). K2 looks
+    # them up on the first case's unit-scale features, held to the plain
+    # lookup and the dense route within K2_TOL and timed; and on RAFT's own
+    # features (random weights: correlations in the hundreds), held to the
+    # plain lookup in float64 within K2_TOL scaled by the values' size (the
+    # plain lookup in float32 is printed beside it).
+    from deep_visual_slam_torch.models import raft as raft_module
+
+    captured = []
+    plain_lookup = raft_module.corr_pyramid_lookup
+
+    def recording_lookup(pyramid, coords, radius):
+        captured.append((pyramid, coords.clone(), radius))
+        return plain_lookup(pyramid, coords, radius)
+
+    small = _randomize_bn(SmallRAFT(iters=12, memory_efficient=True,
+                                    generator=torch.Generator().manual_seed(3)), 4).eval().cuda()
+    frames = kept["seeds"][100]["frames"]
+    a = torch.from_numpy(frames[:16].astype(np.float32)).cuda()
+    b = torch.from_numpy(frames[1:17].astype(np.float32)).cuda()
+    raft_module.corr_pyramid_lookup = recording_lookup
+    try:
+        with torch.inference_mode():
+            small(a, b)
+    finally:
+        raft_module.corr_pyramid_lookup = plain_lookup
+    (_, rf1, rlevels), r = captured[0][0], captured[0][2]
+    targets = [c for _, c, _ in captured]
+    del small, a, b, captured
+    f1, f2, levels, _ = _k2_case(16, 60, 80, 128, 3, seed=len("SmallRAFT B=16"))
+    err = err_own = err_plain = scale = 0.0
+    with torch.inference_mode():
+        pyramid = correlation.build_corr_pyramid(f1, f2, 4)
+        for c in targets:
+            out = lookup(f1, levels, c, r)
+            err = max(err, (out - correlation.lookup_lazy_plain(f1, levels, c, r)).abs().max().item(),
+                      (out - correlation.corr_pyramid_lookup(pyramid, c, r)).abs().max().item())
+            ref = correlation.lookup_lazy_plain(
+                rf1.double(), [t.double() for t in rlevels], c.double(), r)
+            err_own = max(err_own, (lookup(rf1, rlevels, c, r).double() - ref).abs().max().item())
+            err_plain = max(err_plain, (correlation.lookup_lazy_plain(rf1, rlevels, c, r).double()
+                                        - ref).abs().max().item())
+            scale = max(scale, ref.abs().max().item())
+        del pyramid, out, ref
+        raft_ms = cuda_ms(lambda: [lookup(f1, levels, c, r) for c in targets], 5) / len(targets)
+    own_tol = K2_TOL * max(1.0, scale / 5)
+    check(err <= K2_TOL, f"K2 on RAFT's own targets: {err:.2e} from the plain lookup or dense route")
+    check(err_own <= own_tol, f"K2 on RAFT's own features: {err_own:.2e} from float64")
+    max_err = max(max_err, err)
+    row["ms_raft_targets"] = raft_ms
+    shares = "; ".join(f"iteration {i + 1} {_staged_shares(c, levels, r)}"
+                       for i, c in enumerate(targets) if i in (0, 5, 11))
+    print(f"  (a) RAFT's own targets: SmallRAFT B=16 480x640, the {len(targets)} iterations' "
+          f"coords1 [16,60,80,2] (up to "
+          f"{max((c - targets[0]).abs().max().item() for c in targets):.2f} px from the first): "
+          f"max |K2 - plain|, |K2 - dense| {err:.3e} on the first case's features (tolerance "
+          f"{K2_TOL:.0e}); on RAFT's own features (values up to {scale:.1f}) max |K2 - float64| "
+          f"{err_own:.3e} (tolerance {own_tol:.1e}), the plain lookup's {err_plain:.3e}; staged "
+          f"tiles by level {shares}; {card}: K2 {raft_ms:.4f} ms a call (the 12 lookups 5 times "
+          f"back to back between CUDA events, median of 5)")
+    del targets, f1, f2, levels, rf1, rlevels
     row["max_abs_err"] = max_err
     torch.cuda.empty_cache()
 
@@ -2272,6 +2380,13 @@ def _phase13_matcher(card):
     got = matching.match_descriptors_device(des1, des2)
     check(got == want, "the matcher's lists, card against CPU")
     check(len(got[0]) >= MATCH_N // 5, f"{len(got[0])} matches of {MATCH_N}")
+    # Above the capacity (ORB keeps every tie of the n-th response, so a
+    # frame may pass 3072 keypoints): both sides padded to 3200.
+    over1, over2 = _planted_descriptors(MATCH_OVER_N, 14)
+    over = matching.match_descriptors_device(over1, over2)
+    check(over == matching.match_descriptors_device(over1, over2, device="cpu"),
+          f"the matcher's lists at {MATCH_OVER_N} x {MATCH_OVER_N}, card against CPU")
+    check(len(over[0]) >= MATCH_OVER_N // 5, f"{len(over[0])} matches of {MATCH_OVER_N}")
     parts = {"unpack": [], "device": [], "greedy": [], "total": []}
     n2 = len(des2)
     for _ in range(MATCH_REPS):
@@ -2294,7 +2409,9 @@ def _phase13_matcher(card):
           f"{matching.CAPACITY}: {len(got[0])} matches, the card's lists equal the CPU's; "
           f"{med['total']:.3f} ms a call (median of {MATCH_REPS}, host clock): host unpack "
           f"{med['unpack']:.3f}, device (copies in, product, top-2, copy out) "
-          f"{med['device']:.3f}, host greedy {med['greedy']:.3f}")
+          f"{med['device']:.3f}, host greedy {med['greedy']:.3f}; at {MATCH_OVER_N} x "
+          f"{MATCH_OVER_N}, over the capacity: {len(over[0])} matches, the card's lists equal "
+          f"the CPU's")
     return med
 
 

@@ -3,7 +3,12 @@
 :func:`windowed_correlation` launches the hand-written CUDA kernel
 (``csrc/correlation.cu``), which computes the JAX package's
 ``ops/pallas/correlation.py:_lookup_lazy`` (XLA there; the reference's
-``alt_cuda_corr``) for every level in one launch. Its plain PyTorch version
+``alt_cuda_corr``) for every level in one launch. For D = 128 or 256 with
+16-byte aligned rows the kernel takes 8x8 tiles of query pixels a block and
+computes a tile's dots as one product with the union box of its windows,
+staged in shared memory, where that box holds at most ``MAX_BOX[radius]``
+pixels; :func:`tile_plan` computes that choice on the host, as the kernel's
+prologue makes it. Its plain PyTorch version
 is :func:`deep_visual_slam_torch.ops.correlation.lookup_lazy_plain`, which
 serves CPU tensors; this wrapper takes CUDA tensors only and raises on what
 the kernel does not take, on a failed build or launch. It is forward only:
@@ -18,15 +23,21 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import List
+from typing import Dict, List, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from deep_visual_slam_torch.utils import cuda_build
 
 MAX_LEVELS = 8
 MAX_CHANNELS = 256
 RADII = (3, 4)  # SmallRAFT's window radius and RAFT's: the kernel's instantiations
+# The tiled form (csrc/correlation.cu: kTile, Box<R>::kMaxU): query tiles of
+# TILE x TILE pixels; a tile's union box is staged when it holds at most
+# MAX_BOX[radius] pixels, else the tile runs the per-pixel form.
+TILE = 8
+MAX_BOX = {3: 256, 4: 324}
 
 
 @functools.cache
@@ -103,3 +114,35 @@ def windowed_correlation(
 
 
 windowed_correlation.launches = 0
+
+
+def tile_plan(
+    coords: torch.Tensor, level_shapes: Sequence[Tuple[int, int]], radius: int
+) -> List[Dict[str, torch.Tensor]]:
+    """The tiled form's choice for ``coords`` [B, H1, W1, 2] (level-0
+    pixels, (x, y)) on levels of ``level_shapes`` [(h_l, w_l), ...], as the
+    kernel's prologue makes it: per level, the union box of each tile's
+    window grids (``width``, ``height`` [B, tiles_y, tiles_x] int64; a
+    1-pixel axis is 1 wide) and whether the tile stages it (``staged``)."""
+    B, H1, W1, _ = coords.shape
+    ty, tx = -(-H1 // TILE), -(-W1 // TILE)
+    pad = (0, tx * TILE - W1, 0, ty * TILE - H1)
+    side = 2 * radius + 2
+    plan = []
+    for l, (hl, wl) in enumerate(level_shapes):
+        extent = []
+        for axis, n in ((0, wl), (1, hl)):
+            if n == 1:
+                extent.append(torch.ones((B, ty, tx), dtype=torch.int64, device=coords.device))
+                continue
+            fl = torch.floor(coords[..., axis].float() / 2**l)
+            # fminf(fmaxf(fl, -1e6), 1e6): NaN goes to -1e6.
+            origin = torch.nan_to_num(fl, nan=-1e6).clamp(-1e6, 1e6) - radius
+            lo = F.pad(origin, pad, value=math.inf).view(B, ty, TILE, tx, TILE).amin((2, 4))
+            hi = F.pad(origin, pad, value=-math.inf).view(B, ty, TILE, tx, TILE).amax((2, 4))
+            extent.append((hi - lo).to(torch.int64) + side)
+        width, height = extent
+        cap = MAX_BOX[radius]
+        staged = (width <= cap) & (height <= cap) & (width * height <= cap)
+        plan.append({"width": width, "height": height, "staged": staged})
+    return plan

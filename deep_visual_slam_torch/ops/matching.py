@@ -18,8 +18,10 @@ second), whichever index comes first; a tie for the second place changes
 only an index that nothing reads. So the lists do not depend on
 ``topk``'s tie order.
 
-Inputs over the capacity raise: the JAX package hands them to cv2's
-``BFMatcher``, which the port does not have.
+Inputs over the capacity are padded to the next multiple of 128 at or
+above the larger side instead (the JAX package hands them to cv2's
+``BFMatcher``, which the port does not have): the bit product is exact at
+any size, so the lists are the same.
 """
 
 from __future__ import annotations
@@ -74,10 +76,7 @@ def match_descriptors_device(
         return [], []
     n1, n2 = len(des1), len(des2)
     if n1 > capacity or n2 > capacity:
-        raise ValueError(
-            f"{n1} x {n2} descriptors exceed the matcher's capacity of {capacity}; "
-            "pass a larger capacity"
-        )
+        capacity = -(-max(n1, n2) // 128) * 128
     device = resolve_device(device)
     bits1 = torch.from_numpy(_unpack_bits(np.asarray(des1, np.uint8), capacity))
     bits2 = torch.from_numpy(_unpack_bits(np.asarray(des2, np.uint8), capacity))

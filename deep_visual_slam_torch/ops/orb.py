@@ -32,10 +32,12 @@ the same keypoints and descriptors:
    ``orb_pattern.py`` rotated by the angle's float32 cos and sin and rounded
    half to even.
 
-Order: cv2 orders the keypoints of a level as ``nth_element`` and
-``partition`` leave them, which no other implementation reproduces. The
-port orders them by level, then by descending Harris response, then by
-raster position (y, then x): a stable sort of the raster-ordered corners.
+Order: cv2 orders the keypoints of a level as ``retainBest``'s
+``nth_element`` and ``partition`` leave them, from FAST's raster order for
+the ``2 n_l`` retain and then for the ``n_l`` one; the port runs libstdc++'s
+algorithms step by step on the host (``_retain_best``), so the order within
+a level is cv2's too, and with it the one-to-one match pass's choices
+(``scripts/orb_order_gap.py``).
 
 Every step is integer arithmetic or IEEE float32/float64 elementwise
 operations, so the CPU and the card give the same keypoints and
@@ -263,15 +265,110 @@ def fast_scores(img: torch.Tensor) -> torch.Tensor:
     return torch.where(out > nb, out, torch.zeros_like(out))
 
 
-def _retain_best(score: torch.Tensor, n: int):
-    """cv2's ``retainBest``: a mask of the entries scoring at least the
-    n-th best, or None when all n or fewer are kept."""
-    if score.numel() <= n:
-        return None
+def _retain_best(score: torch.Tensor, n: int) -> torch.Tensor:
+    """cv2's ``KeyPointsFilter::retainBest(keypoints, n)`` on the entries of
+    ``score`` (1-D, the keypoints' responses in their order): the indices of
+    the kept entries in the order it leaves them, int64 on the host. The
+    kept set is every entry scoring at least the n-th best (all ties of
+    it); the order is what libstdc++'s ``std::nth_element(begin, begin + n
+    - 1, end, response greater)`` and then ``std::partition(begin + n, end,
+    response >= the n-th's)`` make of the given order, step by step:
+    introselect with the median of three moved to the front, an unguarded
+    partition, a heap select once the depth limit of 2 floor(log2 size) is
+    spent and an insertion sort once 3 or fewer entries remain."""
+    a = list(range(score.numel()))
+    if len(a) <= n:
+        return torch.tensor(a, dtype=torch.int64)
     if n == 0:
-        return torch.zeros_like(score, dtype=torch.bool)
-    kth = torch.topk(score, n, sorted=False).values.min()
-    return score >= kth
+        return torch.zeros(0, dtype=torch.int64)
+    v = score.tolist()
+
+    def adjust_heap(first, hole, length, x):  # std::__adjust_heap, then __push_heap
+        top = child = hole
+        while child < (length - 1) // 2:
+            child = 2 * (child + 1)
+            if v[a[first + child]] > v[a[first + child - 1]]:
+                child -= 1
+            a[first + hole] = a[first + child]
+            hole = child
+        if length % 2 == 0 and child == (length - 2) // 2:
+            child = 2 * (child + 1)
+            a[first + hole] = a[first + child - 1]
+            hole = child - 1
+        parent = (hole - 1) // 2
+        while hole > top and v[a[first + parent]] > v[x]:
+            a[first + hole] = a[first + parent]
+            hole = parent
+            parent = (hole - 1) // 2
+        a[first + hole] = x
+
+    first, nth, last = 0, n - 1, len(a)
+    depth = 2 * (last.bit_length() - 1)
+    while last - first > 3:
+        if depth == 0:  # std::__heap_select(first, nth + 1, last), then swap first, nth
+            length = nth + 1 - first
+            if length >= 2:
+                for parent in range((length - 2) // 2, -1, -1):
+                    adjust_heap(first, parent, length, a[first + parent])
+            for i in range(nth + 1, last):
+                if v[a[i]] > v[a[first]]:
+                    x, a[i] = a[i], a[first]
+                    adjust_heap(first, 0, length, x)
+            a[first], a[nth] = a[nth], a[first]
+            break
+        depth -= 1
+        # std::__move_median_to_first(first, first + 1, mid, last - 1)
+        x, y, z = first + 1, first + (last - first) // 2, last - 1
+        vx, vy, vz = v[a[x]], v[a[y]], v[a[z]]
+        if vx > vy:
+            m = y if vy > vz else (z if vx > vz else x)
+        else:
+            m = x if vx > vz else (z if vy > vz else y)
+        a[first], a[m] = a[m], a[first]
+        # std::__unguarded_partition(first + 1, last, pivot = first)
+        pivot = v[a[first]]
+        lo, hi = first + 1, last
+        while True:
+            while v[a[lo]] > pivot:
+                lo += 1
+            hi -= 1
+            while pivot > v[a[hi]]:
+                hi -= 1
+            if lo >= hi:
+                break
+            a[lo], a[hi] = a[hi], a[lo]
+            lo += 1
+        if lo <= nth:
+            first = lo
+        else:
+            last = lo
+    else:  # std::__insertion_sort(first, last)
+        for i in range(first + 1, last):
+            x, j = a[i], i
+            if v[x] > v[a[first]]:
+                a[first + 1:i + 1] = a[first:i]
+                a[first] = x
+                continue
+            while v[x] > v[a[j - 1]]:
+                a[j] = a[j - 1]
+                j -= 1
+            a[j] = x
+    # std::partition(begin + n, end, response >= threshold), bidirectional.
+    threshold = v[a[n - 1]]
+    lo, hi = n, len(a)
+    while True:
+        while lo != hi and v[a[lo]] >= threshold:
+            lo += 1
+        if lo == hi:
+            break
+        hi -= 1
+        while lo != hi and not v[a[hi]] >= threshold:
+            hi -= 1
+        if lo == hi:
+            break
+        a[lo], a[hi] = a[hi], a[lo]
+        lo += 1
+    return torch.tensor(a[:lo], dtype=torch.int64)
 
 
 # ------------------------------------------------------------ Harris, angle
@@ -399,7 +496,7 @@ def detect_and_compute(gray: torch.Tensor):
     """ORB keypoints and descriptors of a uint8 ``[H, W]`` tensor, on its
     device: ``(pts [N, 2] float32 level-0 (x, y), octave [N] int64, angle [N]
     float32 degrees, response [N] float32 Harris, descriptors [N, 32]
-    uint8)``, ordered by level, descending response, then y and x."""
+    uint8)``, by level, each level in cv2's order."""
     if gray.dtype != torch.uint8 or gray.dim() != 2:
         raise ValueError(f"expected a uint8 [H, W] tensor, got {gray.dtype} {tuple(gray.shape)}")
     dev = gray.device
@@ -418,15 +515,11 @@ def detect_and_compute(gray: torch.Tensor):
         ys, xs = torch.nonzero(inner, as_tuple=True)  # raster order
         fs = inner[ys, xs]
         ys, xs = ys + e, xs + e
-        keep = _retain_best(fs, 2 * quotas[l])
-        if keep is not None:
-            ys, xs = ys[keep], xs[keep]
+        keep = _retain_best(fs, 2 * quotas[l]).to(dev)
+        ys, xs = ys[keep], xs[keep]
         resp = harris_response(img, ys, xs)
-        keep = _retain_best(resp, quotas[l])
-        if keep is not None:
-            ys, xs, resp = ys[keep], xs[keep], resp[keep]
-        order = torch.sort(-resp, stable=True).indices
-        per.append((l, ys[order], xs[order], resp[order]))
+        keep = _retain_best(resp, quotas[l]).to(dev)
+        per.append((l, ys[keep], xs[keep], resp[keep]))
     if not per:
         empty = torch.zeros(0, device=dev)
         return (empty.reshape(0, 2), empty.to(torch.int64), empty, empty,

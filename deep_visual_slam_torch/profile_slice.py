@@ -85,7 +85,7 @@ DEPTH = ROOT / "configs" / "depth.yaml"
 GROUPS = {
     "K1 reprojection_loss_kernel": ("reprojection_loss_kernel",),
     "K1 reprojection_grad_kernel": ("reprojection_grad_kernel",),
-    "K2 corr_lookup_kernel": ("corr_lookup_kernel",),
+    "K2 corr_lookup kernels": ("corr_lookup_kernel", "corr_lookup_tiled_kernel"),
     "Adam (foreach)": ("multi_tensor_apply",),
     "cuDNN convolution": ("xmma_fprop", "xmma_dgrad", "xmma_wgrad", "cudnn", "convolve_"),
     "grid_sample": ("grid_sampler",),

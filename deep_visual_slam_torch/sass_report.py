@@ -1,14 +1,19 @@
 """FP32 instruction counts of kernel K1 from its SASS, and the issue floor
 they imply at the train step's [16, 480, 640, 3]; or kernel K2's resources
-and its memory and shuffle instructions.
+and its memory, shuffle and tensor-core instructions.
 
     python3 -m deep_visual_slam_torch.sass_report [--source correlation.cu]
 
 With ``--source correlation.cu`` it builds K2's library and prints, for each
-instantiation, its resources (``cuobjdump -res-usage``) and its
+instantiation (the per-pixel ``corr_lookup_kernel`` and the tiled
+``corr_lookup_tiled_kernel`` for r = 3, 4 and D = 128, 256), its resources
+(``cuobjdump -res-usage``: registers, shared memory, stack) and its
 instructions: all of them, FP32, local loads and stores (LDL, STL: spills,
-or an array the compiler put on the stack), global loads (LDG) and
-shuffles (SHFL). The rest of this docstring is K1's report (the default).
+or an array the compiler put on the stack), global loads (LDG), the
+asynchronous copies to shared memory (LDGSTS, cp.async), shared-memory
+loads and stores (LDS, STS), shuffles (SHFL) and tensor-core products
+(HMMA, the m16n8k8 TF32 mma.sync). The rest of this docstring is K1's
+report (the default).
 
 Builds ``csrc/reprojection.cu`` as the port builds it, disassembles the
 library with ``cuobjdump -sass`` and prints, for each kernel function, its
@@ -79,7 +84,8 @@ def _report_k2(sass: str) -> None:
         base = [op.split(".")[0] for op in ops]
         fp32, _ = _count(ops)
         print(f"K2 {name}: {len(ops)} instructions, FP32 {fp32}, " + ", ".join(
-            f"{k} {base.count(k)}" for k in ("LDL", "STL", "LDG", "SHFL")))
+            f"{k} {base.count(k)}" for k in ("LDL", "STL", "LDG", "LDGSTS", "LDS", "STS",
+                                             "SHFL", "HMMA")))
 
 
 def main() -> None:

@@ -20,9 +20,11 @@ gradient.
 
 K2 (the windowed correlation lookup) against the plain lazy lookup, at
 SmallRAFT's and BasicRAFT's shapes at 480x640 and at small shapes whose
-fourth level is 1x1, with targets up to 12 pixels off the grid: atol 1e-4 on
-correlations up to ~5 (the kernel dots before it blends and sums in another
-order; 4.6e-5 measured at D = 128).
+fourth level is 1x1, with targets up to 12 pixels off the grid, smooth
+targets (the tiled form's staged boxes, also past the map's edges) and both
+in one launch: atol 1e-4 on correlations up to ~5 (the kernel dots before it
+blends and sums in another order; 4.6e-5 measured at D = 128 in the
+per-pixel form).
 
 Depth-Anything-V2 (vits, 56x84), the ORB matcher and ORB itself run no
 kernel of the port's own; their card checks sit here because this file
@@ -165,26 +167,51 @@ def test_reprojection_backward_kernel_leaves_a_strided_gradient_uncopied(cuda_de
     _assert_grads_close((got,), (a.grad,))
 
 
-K2_SHAPES = [(16, 60, 80, 128, 3), (1, 60, 80, 256, 4), (2, 9, 13, 16, 3), (2, 8, 12, 32, 4)]
+# (B, H1, W1, D, radius) and the targets. The tiled form takes D = 128 and
+# 256: "smooth" (one shift) and "edges" (a smooth flow out of the centre,
+# past every edge) stage every tile's union box, "random" (+-12 px) runs
+# the fine levels' tiles in the per-pixel form, "mixed" alternates the two
+# tile by tile in one launch; D = 16 and 32 take the per-pixel form alone.
+K2_SHAPES = [((16, 60, 80, 128, 3), "random"), ((1, 60, 80, 256, 4), "random"),
+             ((2, 9, 13, 16, 3), "random"), ((2, 8, 12, 32, 4), "random"),
+             ((16, 60, 80, 128, 3), "mixed"), ((16, 60, 80, 128, 3), "edges"),
+             ((1, 60, 80, 256, 4), "smooth"), ((2, 9, 13, 128, 3), "smooth")]
 
 
-def _corr_inputs(shape, device):
+def _corr_inputs(shape, device, flow="random"):
     B, H, W, D, _ = shape
     g = torch.Generator(device=device).manual_seed(2)
     f1 = torch.randn((B, H, W, D), device=device, generator=g)
     f2 = torch.randn((B, H, W, D), device=device, generator=g)
     ys, xs = torch.meshgrid(torch.arange(H, device=device, dtype=torch.float32),
                             torch.arange(W, device=device, dtype=torch.float32), indexing="ij")
-    coords = torch.stack([xs, ys], -1) + 24 * torch.rand((B, H, W, 2), device=device,
-                                                         generator=g) - 12
-    return f1, correlation.build_corr_pyramid(f1, f2, 4, memory_efficient=True)[2], coords
+    grid = torch.stack([xs, ys], -1)
+    noise = 24 * torch.rand((B, H, W, 2), device=device, generator=g) - 12
+    shift = torch.tensor([3.3, -2.7], device=device)
+    if flow == "random":
+        coords = grid + noise
+    elif flow == "smooth":
+        coords = grid + shift
+    elif flow == "edges":
+        centre = torch.tensor([(W - 1) / 2, (H - 1) / 2], device=device)
+        coords = grid + 0.1 * (grid - centre) + torch.tensor([0.37, -0.21], device=device)
+    else:  # "mixed"
+        tile = correlation_cuda.TILE
+        checker = ((grid[..., :1] // tile + grid[..., 1:] // tile) % 2) == 1
+        coords = grid + torch.where(checker, noise, shift)
+    levels = correlation.build_corr_pyramid(f1, f2, 4, memory_efficient=True)[2]
+    return f1, levels, coords.expand(B, H, W, 2).contiguous()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", K2_SHAPES)
-def test_windowed_correlation_matches_plain_on_card(cuda_device, shape):
-    f1, levels, coords = _corr_inputs(shape, cuda_device)
+@pytest.mark.parametrize("shape,flow", K2_SHAPES)
+def test_windowed_correlation_matches_plain_on_card(cuda_device, shape, flow):
+    f1, levels, coords = _corr_inputs(shape, cuda_device, flow)
     radius = shape[-1]
+    if flow == "mixed":  # both forms in the one launch
+        shares = [p["staged"].float().mean().item() for p in correlation_cuda.tile_plan(
+            coords, [t.shape[1:3] for t in levels], radius)]
+        assert 0 < shares[0] < 1
     launches = correlation_cuda.windowed_correlation.launches
     with torch.no_grad():
         out = correlation.corr_pyramid_lookup(("lazy", f1, levels), coords, radius)
@@ -266,14 +293,15 @@ def test_depth_anything_on_card_in_fp32_and_bf16(cuda_device):
 
 
 @pytest.mark.cuda
-def test_matcher_on_card_matches_cpu(cuda_device):
+@pytest.mark.parametrize("n", [3000, 3100])  # at and above the capacity (3072)
+def test_matcher_on_card_matches_cpu(cuda_device, n):
     import numpy as np
 
     from deep_visual_slam_torch.ops import matching
 
     rng = np.random.default_rng(0)
-    des2 = rng.integers(0, 256, size=(3000, 32), dtype=np.uint8)
-    des1 = rng.integers(0, 256, size=(3000, 32), dtype=np.uint8)
+    des2 = rng.integers(0, 256, size=(n, 32), dtype=np.uint8)
+    des1 = rng.integers(0, 256, size=(n, 32), dtype=np.uint8)
     des1[::3] = des2[::3]  # planted matches
     des2[1::7] = des2[0::7][: len(des2[1::7])]  # ties for the nearest place
     got = matching.match_descriptors_device(des1, des2, device=cuda_device)

@@ -6,7 +6,8 @@ that pass the ratio test), duplicated train rows (a tie for the nearest
 place, which must fail the ratio test whichever index comes first) and
 queries with two train rows at the same second distance (a tie that only
 moves an index nothing reads). The JAX side runs ``match_descriptors_device``
-at a small capacity (one XLA compile); the lists must be equal.
+at a small capacity (one XLA compile), or cv2's ``BFMatcher`` above the
+capacity, where the JAX package hands inputs to it; the lists must be equal.
 """
 
 import numpy as np
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from deep_visual_slam_tpu.ops import matching as jax_matching
+from deep_visual_slam_tpu.slam import frontend as jfrontend
 
 from deep_visual_slam_torch.ops import matching
 
@@ -57,6 +59,16 @@ def test_matcher_matches_jax(sizes):
         assert len(got[0]) > 150  # the planted matches came through
 
 
+def test_matcher_above_capacity_matches_cv2():
+    """3100 x 3100 planted descriptors at the default capacity (3072), which
+    the JAX package hands to cv2's ``BFMatcher``: the same lists."""
+    des1, des2 = _descriptors(3100, 3100, 3100)
+    want = jfrontend.match_descriptors_cv2(des1, des2)
+    got = matching.match_descriptors_device(des1, des2, device="cpu")
+    assert tuple(got) == tuple(want)
+    assert len(got[0]) > 700
+
+
 def test_matcher_ties_and_limits():
     des2 = np.random.default_rng(0).integers(0, 256, size=(8, 32), dtype=np.uint8)
     des2[1] = des2[0]
@@ -65,9 +77,11 @@ def test_matcher_ties_and_limits():
     assert (q, t) == ([1], [2])  # row 0 ties for the nearest and fails the ratio test
     assert matching.match_descriptors_device(None, des2, device="cpu") == ([], [])
     assert matching.match_descriptors_device(des2[:1], des2, device="cpu") == ([], [])
-    with pytest.raises(ValueError, match="capacity of 64"):
-        matching.match_descriptors_device(np.tile(des2, (9, 1)), des2, capacity=64,
-                                          device="cpu")
+    # Above the capacity both sides are padded, as the JAX package's cv2
+    # fallback would see them.
+    over = np.tile(des2, (9, 1))
+    want = jax_matching.match_descriptors_device(over, des2, capacity=64)
+    assert matching.match_descriptors_device(over, des2, capacity=64, device="cpu") == want
     if not torch.cuda.is_available():  # no fallback: the default device is CUDA
         with pytest.raises(RuntimeError, match="CUDA"):
             matching.match_descriptors_device(tie, des2)

@@ -8,7 +8,9 @@ JAX package, on the CPU.
   ``retainBest`` the kept set does not depend on the order of ties, and every
   score is reproduced bit for bit); angles, Harris responses and descriptors
   of the same keypoints equal; the descriptors at cv2's own keypoints equal
-  bit for bit. The committed pattern reproduces cv2 on probe keypoints.
+  bit for bit; the keypoints' order within each level cv2's (libstdc++'s
+  ``nth_element`` and ``partition``, run step by step on the host). The
+  committed pattern reproduces cv2 on probe keypoints.
 - The matcher on the port's descriptors of two frames against the JAX
   package's cv2 ``BFMatcher`` path: equal lists.
 - The Map's ORB functions on one map built by hand on both sides (numpy, no
@@ -143,6 +145,26 @@ def test_keypoints_and_descriptors_match_cv2(kind):
         assert tk.dtype == np.int32 and td.dtype == np.uint8
         got = sorted((tuple(p), d.tobytes()) for p, d in zip(tk.tolist(), td))
         assert got == sorted((tuple(p), d.tobytes()) for p, d in zip(jk.tolist(), jd))
+
+
+@pytest.mark.parametrize("kind", ["render", "texture"])
+def test_keypoint_order_matches_cv2(kind):
+    """The order of the keypoints, level by level, is cv2's: ``retainBest``'s
+    ``nth_element`` and ``partition`` (libstdc++'s) from FAST's raster order,
+    for the 2n retain and the n retain after Harris, on a render of the SLAM
+    fixture and on a texture with ties at all 3000 features; and the port's
+    ``extract_features`` lists equal the JAX package's (cv2) in order."""
+    rgb = _frame(kind)
+    u8 = rgb if rgb.dtype == np.uint8 else (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
+    gray = cv2.cvtColor(u8, cv2.COLOR_RGB2GRAY)
+    pts, octave, _, _, des = orb.detect_and_compute(torch.from_numpy(gray))
+    kps, cdes = _cv2_orb().detectAndCompute(gray, None)
+    assert list(zip(octave.tolist(), pts.tolist())) == [(k.octave, list(k.pt)) for k in kps]
+    np.testing.assert_array_equal(des.numpy(), cdes)
+    jk, jd = jfrontend.extract_features(u8)
+    tk, td = frontend.extract_features(u8, device="cpu")
+    np.testing.assert_array_equal(tk, jk)
+    np.testing.assert_array_equal(td, jd)
 
 
 def test_matcher_matches_jax_on_orb_descriptors():
