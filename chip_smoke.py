@@ -148,6 +148,22 @@ the run with a non-zero exit code and no result line:
    ms. (d) The loop at 96x128 in fp32, the card against the CPU: the same
    keyframes, poses within ``SLAM_SMALL_ATOL``. (e) Global BA over (c)'s
    keyframes with BA: ms, and the keyframe ATE's move.
+15. The CLIs' loops, which launch no kernel of the port's own (K1 and K2
+   0), fed from memory: the card's machine has no matplotlib, so the
+   figures stay on the host. (a) ``slam_cli.run`` over phase 7c's sweep
+   (480x640 uint8, 40 frames, ``--num_kf 7 --max_points 256``, bf16 random
+   networks), with KLT and ``--global_ba`` and with ORB, each against
+   ``MonoVO`` driven directly with the same options over the same frames:
+   positions within ``SLAM_BA_30_ATOL`` over the first 30 frames; ms per
+   frame (host clock, median) beside the direct run's and phase 7c's and
+   14c's. (b) ``predict.run`` over ``configs/vo.yaml`` at 480x640 with the
+   Redwood source off and the synthetic one on (B=1, bf16): the trajectory
+   and clouds against the networks called directly with its pairing (depth
+   on the target, pose on (target, source_right)) within
+   ``PREDICT_ATOL``; ms per frame fed as ``predict.main`` feeds it
+   (``device_prefetch`` over the test loader, so the host's render,
+   collation and copy to the card are inside the clock), over
+   ``PREDICT_PASSES`` passes, and over the batches already on the card.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
@@ -427,6 +443,15 @@ DDP_STATS_RTOL, DDP_STATS_ATOL = 1e-2, 1e-3
 # give equal lists on both, so only the networks' and the solves' sums
 # differ).
 ORB_FRAMES, ORB_REPS = 4, 20
+# Phase 15b: predict's loop against the same networks called directly with
+# its pairing, on the same card, dtype and batches: the same kernels on the
+# same inputs, so equal; 1e-6 leaves room for a kernel that rounds
+# otherwise between two calls. The synthetic source's length gives a test
+# split of max(length // 8, 4) frames; the loop fed as predict.main feeds
+# it is timed over PREDICT_PASSES passes of that split.
+PREDICT_ATOL = 1e-6
+PREDICT_LENGTH = 40
+PREDICT_PASSES = 4
 
 
 def check(ok: bool, what: str) -> None:
@@ -1084,6 +1109,7 @@ def phase_slam(k1):
     )
     check(slam_launches == (0, 0), "the SLAM loop launches no K1")
     kept["nets"] = nets
+    kept["serve_ms"] = [ms for ms, _, _ in log[1:]]
     return slam_launches, kept
 
 
@@ -2114,8 +2140,8 @@ def phase_raft(k1, rates, card, kept):
         out = root / name
         t0 = time.perf_counter()
         if net is pose:
-            results = evaluate_redwood(net, str(root), (H, W), str(out), scenes=tuple(scenes),
-                                       read_image=read_image)
+            results, _ = evaluate_redwood(net, str(root), (H, W), str(out),
+                                          scenes=tuple(scenes), read_image=read_image)
         else:
             results = RedwoodEvaluator(make_pose_fn(net), str(root), (H, W),
                                        read_image=read_image).evaluate(tuple(scenes), str(out))
@@ -2639,6 +2665,7 @@ def phase_orb(k1, kept, card):
         move = runs[init, True]["ate"] - runs[init, False]["ate"]
         print(f"  (c) {init} init: windowed BA moves the ATE by {move:+.6f} m "
               f"({'lowers' if move < 0 else 'raises'} it)")
+    kept["orb_ms"] = [ms for ms, _, _ in runs["net", True]["log"][1:]]
     vo = runs["net", True]["vo"]
     check(len(runs["net", True]["kfs"]) >= 3, "ORB keyframes in the serving run")
     window = vo.mp.keyframes[-vo.mp.num_kf:]
@@ -2696,6 +2723,180 @@ def phase_orb(k1, kept, card):
     return launches
 
 
+def _timed(frames, stamps):
+    """``frames`` one at a time, appending the host clock before each is
+    handed out and once after the consumer asks past the last: the
+    differences are the consumer's time a frame."""
+    for frame in frames:
+        stamps.append(time.perf_counter())
+        yield frame
+    stamps.append(time.perf_counter())
+
+
+def _per_frame_ms(stamps):
+    return [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+
+
+def _phase15_slam_cli(kept, card):
+    """(a) The SLAM CLI's loop over phase 7c's sweep, against ``MonoVO``."""
+    from deep_visual_slam_torch import slam_cli
+    from deep_visual_slam_torch.slam import MonoVO
+
+    serve = kept["serve"]
+    frames, K = serve["frames"], serve["K"]
+    H, W = frames.shape[1:3]
+    root = ROOT / "build" / "phase15"
+    readings = {}
+    for frontend, extra in (("klt", ["--global_ba"]), ("orb", [])):
+        args = slam_cli.parser().parse_args([
+            "--input", "frames-in-memory", "--output", str(root / frontend),
+            "--img_h", str(H), "--img_w", str(W), "--fx", str(K[0, 0]), "--fy", str(K[1, 1]),
+            "--cx", str(K[0, 2]), "--cy", str(K[1, 2]), "--num_kf", "7", "--max_points", "256",
+            "--frontend", frontend, *extra])
+        stamps = []
+        start = time.perf_counter()
+        traj = slam_cli.run(_timed(frames, stamps), args)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - start
+        check(traj is not None and traj.shape == (len(frames), 4, 4) and np.isfinite(traj).all(),
+              f"SLAM CLI ({frontend}): a finite trajectory of every frame")
+        check(np.array_equal(np.load(root / frontend / "trajectory.npy"), traj),
+              f"SLAM CLI ({frontend}): trajectory.npy holds the trajectory")
+        # The same loop driven directly, with the CLI's options.
+        vo = MonoVO(slam_cli.intrinsic_from_args(args), image_shape=(H, W), num_kf=7,
+                    max_points=256, frontend=frontend, fetch_depth=frontend == "orb")
+        direct_stamps = []
+        for frame in _timed(frames, direct_stamps):
+            vo.process_frame(frame)
+        if args.global_ba:
+            check(vo.mp.global_bundle_adjustment(vo.intrinsic), "global BA after the direct run")
+        want = vo.trajectory()
+        err30 = float(np.abs(traj[:30, :3, 3] - want[:30, :3, 3]).max())
+        err_all = float(np.abs(traj - want).max())
+        cli_ms, direct_ms = _per_frame_ms(stamps)[1:], _per_frame_ms(direct_stamps)[1:]
+        earlier = kept["serve_ms"] if frontend == "klt" else kept["orb_ms"]
+        readings[frontend] = statistics.median(cli_ms)
+        ba_note = " with the end's global BA" if args.global_ba else ""
+        print(f"  (a) {card}: the SLAM CLI's loop (slam_cli.run), {frontend.upper()}"
+              f"{' with --global_ba' if args.global_ba else ''}, {len(frames)} frames of phase "
+              f"7c's sweep at {H}x{W} uint8 from memory, num_kf=7, max_points=256, bf16 random "
+              f"networks: ms/frame (host clock, frames 1-{len(frames) - 1}) median "
+              f"{statistics.median(cli_ms):.2f}, mean {statistics.mean(cli_ms):.2f}; the run "
+              f"{total:.2f} s{ba_note}; "
+              f"MonoVO driven directly here median "
+              f"{statistics.median(direct_ms):.2f}; phase {'7c' if frontend == 'klt' else '14c'}"
+              f"'s run median {statistics.median(earlier):.2f}. Positions against the direct "
+              f"run: {err30:.2e} m over the first 30 frames (tolerance {SLAM_BA_30_ATOL:.0e}), "
+              f"{err_all:.2e} over all")
+        check(err30 <= SLAM_BA_30_ATOL,
+              f"SLAM CLI ({frontend}) within {SLAM_BA_30_ATOL} m of MonoVO over 30 frames")
+    shutil.rmtree(root, ignore_errors=True)
+    return readings
+
+
+def _phase15_predict(config, card):
+    """(b) predict's loop on the synthetic test split at ``config``'s size,
+    against the networks called directly with its pairing."""
+    from deep_visual_slam_torch import predict, resolve_device
+    from deep_visual_slam_torch.data.loader import VoDataLoader, device_prefetch
+    from deep_visual_slam_torch.ops import backproject, disp_to_depth
+    from deep_visual_slam_torch.ops import transformation_from_parameters
+
+    config = copy.deepcopy(config)
+    config["Dataset"]["redwood"]["mono"] = False
+    config["Dataset"]["synthetic"] = {"mono": True, "length": PREDICT_LENGTH}
+    t = config["Train"]
+    root = ROOT / "build" / "phase15"
+    args = predict.parser().parse_args(["--output", str(root / "predict"),
+                                        "--pointcloud_every", "1"])
+    depth_model, pose_model = predict.load_models(None, resolve_device(None))
+    loader = VoDataLoader(config)
+    check(loader.test_loader.batch_size == t["vis_batch_size"] == 1, "predict at B=1")
+    batches = list(device_prefetch(loader.test_loader))
+    check(len(batches) >= 4, f"predict: {len(batches)} test batches")
+    predict.run(batches[:1], depth_model, pose_model, config, args)  # warm-up
+    # Fed as predict.main feeds it, device_prefetch over the test loader:
+    # each frame's time holds its networks and the wait for the next batch
+    # (the synthetic render on the host, collation, the copy to the card).
+    fed_ms, fed_run_ms = [], []
+    for _ in range(PREDICT_PASSES):
+        stamps = []
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        viz = predict.run(_timed(device_prefetch(loader.test_loader), stamps), depth_model,
+                          pose_model, config, args)
+        torch.cuda.synchronize()
+        fed_run_ms.append((time.perf_counter() - start) * 1e3 / len(viz.poses))
+        fed_ms += _per_frame_ms(stamps)
+    fed_traj = np.asarray(viz.poses)
+    # The same loop over the batches already on the card: the loader not timed.
+    stamps = []
+    viz = predict.run(_timed(batches, stamps), depth_model, pose_model, config, args)
+    torch.cuda.synchronize()
+    ms = _per_frame_ms(stamps)
+    traj = np.asarray(viz.poses)
+    check(traj.shape == fed_traj.shape == (len(batches), 4, 4) and np.isfinite(traj).all(),
+          "predict: a finite trajectory of every frame")
+    # The networks called directly: depth on the target, pose on (target,
+    # source_right), bf16 under autocast as the CLI runs them.
+    world, poses, clouds = np.eye(4), [], []
+    device_type = batches[0]["target_image"].device.type
+    with torch.inference_mode():
+        for batch in batches:
+            with torch.autocast(device_type, torch.bfloat16, enabled=device_type == "cuda"):
+                disps = depth_model(batch["target_image"])
+                aa, tr = pose_model(torch.cat([batch["target_image"], batch["source_right"]],
+                                              -1))
+            _, depth = disp_to_depth(disps[("disp", 0)].float(), t["min_depth"], t["max_depth"])
+            points = backproject(depth[..., 0], batch["inv_K"])[0].cpu().numpy()
+            T = transformation_from_parameters(aa[:, 0, 0].float(), tr[:, 0, 0].float())
+            world = world @ T[0].cpu().numpy().astype(np.float64)
+            poses.append(world)
+            pts = points[::8, ::8].reshape(-1, 3)
+            pts = pts[(pts[:, 2] > 0) & (pts[:, 2] < 10.0)]
+            clouds.append((pts @ world[:3, :3].T + world[:3, 3]) * np.array([1.0, -1.0, 1.0]))
+    pose_err = max(float(np.abs(t - np.stack(poses)).max()) for t in (traj, fed_traj))
+    cloud_err = max(float(np.abs(a - b).max()) if a.shape == b.shape else math.inf
+                    for a, b in zip(viz.points, clouds))
+    H, W = t["img_h"], t["img_w"]
+    print(f"  (b) {card}: predict's loop (predict.run), configs/vo.yaml at {H}x{W}, the "
+          f"synthetic test split ({len(batches)} frames, B=1), bf16, random networks. Fed as "
+          f"predict.main feeds it (device_prefetch over the test loader), {PREDICT_PASSES} "
+          f"passes: ms/frame (host clock: both networks, backprojection, the cloud to the "
+          f"host, and the wait for the next batch: render, collation, copy to the card) "
+          f"median {statistics.median(fed_ms):.2f}, mean {statistics.mean(fed_ms):.2f} over "
+          f"{len(fed_ms)} frames; each pass's wall time a frame, its first batch included, "
+          f"{', '.join(f'{v:.2f}' for v in fed_run_ms)}. Over the batches already on the "
+          f"card (the loader not timed): median {statistics.median(ms):.2f}, mean "
+          f"{statistics.mean(ms):.2f}. Against the networks called directly: poses within "
+          f"{pose_err:.2e} (both runs), clouds within {cloud_err:.2e} (tolerance "
+          f"{PREDICT_ATOL:.0e})")
+    check(pose_err <= PREDICT_ATOL and cloud_err <= PREDICT_ATOL,
+          f"predict's trajectory and clouds within {PREDICT_ATOL} of the direct networks'")
+    shutil.rmtree(root, ignore_errors=True)
+    return statistics.median(fed_ms)
+
+
+def phase_cli(k1, config, kept, card):
+    from deep_visual_slam_torch.ops.correlation_cuda import windowed_correlation
+
+    print("phase 15: the SLAM and predict CLIs' loops")
+    start_phase = time.perf_counter()
+    k1.launches = k1.backward_launches = 0
+    windowed_correlation.launches = 0
+    _phase15_slam_cli(kept, card)
+    slam_launches = (k1.launches, k1.backward_launches, windowed_correlation.launches)
+    k1.launches = k1.backward_launches = 0
+    windowed_correlation.launches = 0
+    _phase15_predict(config, card)
+    predict_launches = (k1.launches, k1.backward_launches, windowed_correlation.launches)
+    print(f"  K1 launches (forward, backward) and K2: SLAM CLI {slam_launches}, predict "
+          f"{predict_launches} (neither path runs them); phase "
+          f"{time.perf_counter() - start_phase:.1f} s")
+    check(slam_launches == predict_launches == (0, 0, 0), "the CLIs' loops launch no K1 or K2")
+    return slam_launches, predict_launches
+
+
 def main() -> int:
     if not (ROOT / "deep_visual_slam_torch" / "csrc" / "reprojection.cu").is_file():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -2727,22 +2928,26 @@ def main() -> int:
     k2_row, raft_k2, redwood_k2 = phase_raft(reprojection_loss, rates, card, kept)
     ddp_fwd, ddp_bwd = phase_da_matcher_ddp(reprojection_loss, config, kept, card)
     orb_fwd, orb_bwd, orb_k2 = phase_orb(reprojection_loss, kept, card)
+    (cli_fwd, cli_bwd, cli_k2), (pred_fwd, pred_bwd, pred_k2) = phase_cli(
+        reprojection_loss, config, kept, card)
     # Each main path ran with the counts set to 0 just before it. DA-V2,
-    # the matcher and the ORB loop launch none of the port's kernels.
+    # the matcher, the ORB loop and the CLIs' loops launch none of the
+    # port's kernels.
     k1_row["launches_by_path"] = {
         "eval": eval_launches, "train": train_fwd, "stereo": stereo_fwd, "slam": slam_fwd,
         "global_ba": global_fwd, "trainer": trainer_fwd, "depth": depth_fwd,
         "raft": 0, "redwood": 0, "depth_anything": 0, "matcher": 0, "ddp": ddp_fwd,
-        "orb": orb_fwd,
+        "orb": orb_fwd, "slam_cli": cli_fwd, "predict": pred_fwd,
     }
     bwd_row["launches_by_path"] = {
         "eval": 0, "train": train_bwd, "stereo": stereo_bwd, "slam": slam_bwd,
         "global_ba": global_bwd, "trainer": trainer_bwd, "depth": depth_bwd,
         "raft": 0, "redwood": 0, "depth_anything": 0, "matcher": 0, "ddp": ddp_bwd,
-        "orb": orb_bwd,
+        "orb": orb_bwd, "slam_cli": cli_bwd, "predict": pred_bwd,
     }
     k2_row["launches_by_path"] = {"raft": raft_k2, "redwood": redwood_k2,
-                                  "depth_anything": 0, "matcher": 0, "ddp": 0, "orb": orb_k2}
+                                  "depth_anything": 0, "matcher": 0, "ddp": 0, "orb": orb_k2,
+                                  "slam_cli": cli_k2, "predict": pred_k2}
     rows = [k1_row, bwd_row, k2_row]
     for row in rows:
         row["launches"] = sum(row["launches_by_path"].values())

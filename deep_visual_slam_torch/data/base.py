@@ -9,19 +9,64 @@ one draw for all three frames) runs in numpy on the host; its hue step
 computes OpenCV's float RGB<->HSV formulas (H in degrees) in numpy, so the
 port needs no cv2.
 
-Frame IO belongs to subclasses (``data/packed.py``); the JAX package's path
-decoders (``read_image_rgb`` and the 16-bit PNG read) need an image decoder
-and wait for the path datasets (ROADMAP.md §1, item 1f).
+The bases count frames or samples and leave the reads to subclasses. The
+path datasets (:class:`PathSnippetDataset`, :class:`PathDepthDataset`) read
+image files by cv2 (decode, BGR -> RGB, bilinear resize to ``image_size``
+where the file differs), as the JAX package reads them; ``data/packed.py``
+reads memmap rows instead. cv2 is
+imported by the functions that decode, never by this module: on a machine
+without it the readers raise ``ImportError`` and the rest of the data layer
+works. The JAX package's native resize (``native/``) has no counterpart: its
+floats come from the same uint8 decode through another resize, and the
+port's fast path is its packed shards.
 """
 
 from __future__ import annotations
 
+import abc
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
 NUM_SCALES = 4
+# What a path source's scene that does not load raises: a missing or
+# unreadable file, a malformed calibration or pose file, no frames. The
+# sources skip such a scene with a warning; anything else (cv2 missing
+# included) propagates.
+SCENE_ERRORS = (OSError, ValueError, KeyError)
 _FLT_EPSILON = np.float32(np.finfo(np.float32).eps)
+
+
+def read_image_u8(path: str, height: int, width: int) -> np.ndarray:
+    """Decode ``path`` to [H, W, 3] uint8 RGB, bilinearly resized to
+    (``height``, ``width``) where the file is another size."""
+    import cv2
+
+    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    if img is None:
+        raise FileNotFoundError(path)
+    img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    if img.shape[:2] != (height, width):
+        img = cv2.resize(img, (width, height), interpolation=cv2.INTER_LINEAR)
+    return img
+
+
+def read_image_rgb(path: str, height: int, width: int) -> np.ndarray:
+    """:func:`read_image_u8` as [H, W, 3] float32 in [0, 1]."""
+    return read_image_u8(path, height, width).astype(np.float32) / 255.0
+
+
+def read_depth_raw(path: str, height: int, width: int) -> np.ndarray:
+    """A depth image in sensor units (16-bit PNG) unchanged, resized by
+    nearest neighbour where the file is another size."""
+    import cv2
+
+    depth = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    if depth is None:
+        raise FileNotFoundError(path)
+    if depth.shape[:2] != (height, width):
+        depth = cv2.resize(depth, (width, height), interpolation=cv2.INTER_NEAREST)
+    return depth
 
 
 def rgb_to_hsv_np(rgb: np.ndarray) -> np.ndarray:
@@ -114,7 +159,22 @@ def intrinsics_pyramid_np(K4: np.ndarray, num_scales: int = NUM_SCALES):
     return out
 
 
-class SnippetDataset:
+class ConcatDataset:
+    """Concatenation of indexable datasets; empty ones are dropped."""
+
+    def __init__(self, datasets: Sequence):
+        self.datasets = [d for d in datasets if d is not None and len(d) > 0]
+        self._offsets = np.cumsum([0] + [len(d) for d in self.datasets])
+
+    def __len__(self) -> int:
+        return int(self._offsets[-1]) if self.datasets else 0
+
+    def __getitem__(self, idx: int, rng=None):
+        i = int(np.searchsorted(self._offsets, idx, side="right") - 1)
+        return self.datasets[i].__getitem__(idx - int(self._offsets[i]), rng)
+
+
+class SnippetDataset(abc.ABC):
     """Indexable 3-frame snippet source over one image sequence of
     ``num_frames`` frames with a 4x4 intrinsic scaled to ``image_size``.
     ``poses`` (camera-to-world) give the ground-truth relative poses in
@@ -150,14 +210,13 @@ class SnippetDataset:
     def __len__(self) -> int:
         return max(0, self.num_frames - 2 * self.max_gap)
 
+    @abc.abstractmethod
     def _load_triplet(self, indices) -> np.ndarray:
-        raise NotImplementedError(
-            "path-listed image sources need an image decoder: they come with "
-            "the path datasets (ROADMAP.md §1, items 3-4); use packed shards"
-        )
+        """Frames ``indices`` as [3, H, W, 3] fp32 in [0, 1]."""
 
+    @abc.abstractmethod
     def _load_triplet_u8(self, indices) -> np.ndarray:
-        return self._load_triplet(indices)
+        """Frames ``indices`` as [3, H, W, 3] uint8."""
 
     def __getitem__(self, idx: int, rng: Optional[np.random.Generator] = None) -> Dict:
         if rng is None:
@@ -198,14 +257,44 @@ class SnippetDataset:
         return sample
 
 
-class DepthSampleDataset:
+class PathSnippetDataset(SnippetDataset):
+    """:class:`SnippetDataset` over the image files ``rgb_paths``, in order,
+    decoded by :func:`read_image_rgb` and :func:`read_image_u8` at
+    ``image_size`` (the JAX package's ``SnippetDataset``)."""
+
+    def __init__(
+        self,
+        rgb_paths: Sequence[str],
+        intrinsic: np.ndarray,
+        image_size: Tuple[int, int],
+        is_train: bool = True,
+        augment: bool = True,
+        poses: Optional[Sequence[np.ndarray]] = None,
+        num_scales: int = NUM_SCALES,
+    ):
+        self.rgb_paths = list(rgb_paths)
+        super().__init__(len(self.rgb_paths), intrinsic, image_size, is_train, augment, poses,
+                         num_scales)
+
+    def _load(self, idx: int) -> np.ndarray:
+        H, W = self.image_size
+        return read_image_rgb(self.rgb_paths[idx], H, W)
+
+    def _load_triplet(self, indices) -> np.ndarray:
+        return np.stack([self._load(i) for i in indices])
+
+    def _load_triplet_u8(self, indices) -> np.ndarray:
+        H, W = self.image_size
+        return np.stack([read_image_u8(self.rgb_paths[i], H, W) for i in indices])
+
+
+class DepthSampleDataset(abc.ABC):
     """Supervised-depth samples: RGB and a depth map in sensor units
     (millimetres for NYU) -> metres and the valid mask ``0 < d <
     max_depth``, with a horizontal flip (p=0.5) then ColorJitter (p=0.5)
     drawn in that order from the sample's generator in training.
 
-    Subclasses read sample ``idx`` in :meth:`_load`: the image [H, W, 3]
-    fp32 in [0, 1] and the raw depth [H, W], both at ``image_size``.
+    Subclasses read sample ``idx`` in :meth:`_load`.
     """
 
     def __init__(
@@ -227,12 +316,10 @@ class DepthSampleDataset:
     def __len__(self) -> int:
         return self.num_samples
 
+    @abc.abstractmethod
     def _load(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
-        raise NotImplementedError(
-            "RGB/depth image files need an image decoder: they come with the "
-            "path datasets (ROADMAP.md §1, item 1f); subclass DepthSampleDataset "
-            "with a reader of your own"
-        )
+        """The image [H, W, 3] fp32 in [0, 1] and the raw depth [H, W], both
+        at ``image_size``."""
 
     def __getitem__(self, idx: int, rng: Optional[np.random.Generator] = None) -> Dict:
         if rng is None:
@@ -253,3 +340,31 @@ class DepthSampleDataset:
                 rgb = color_jitter(rgb[None], rng)[0]
         valid = (depth > 0) & (depth < self.max_depth)
         return {"image": rgb, "depth": depth[..., None], "valid_mask": valid[..., None]}
+
+
+class PathDepthDataset(DepthSampleDataset):
+    """:class:`DepthSampleDataset` over image and 16-bit depth files, read
+    by :func:`read_image_rgb` and :func:`read_depth_raw` at ``image_size``
+    (the JAX package's ``DepthSampleDataset``)."""
+
+    def __init__(
+        self,
+        rgb_paths: Sequence[str],
+        depth_paths: Sequence[str],
+        image_size: Tuple[int, int],
+        max_depth: float = 10.0,
+        is_train: bool = True,
+        augment: bool = True,
+        depth_scale: float = 1000.0,
+    ):
+        if len(rgb_paths) != len(depth_paths):
+            raise ValueError(f"{len(rgb_paths)} images and {len(depth_paths)} depth maps")
+        self.rgb_paths = list(rgb_paths)
+        self.depth_paths = list(depth_paths)
+        super().__init__(len(self.rgb_paths), image_size, max_depth, is_train, augment,
+                         depth_scale)
+
+    def _load(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+        H, W = self.image_size
+        return (read_image_rgb(self.rgb_paths[idx], H, W),
+                read_depth_raw(self.depth_paths[idx], H, W))

@@ -7,8 +7,8 @@ process group each rank its column of every global batch; samples are read
 on a thread pool and collated into numpy arrays.
 ``device_prefetch`` keeps ``size`` batches in flight to the card through
 pinned host buffers and a copy stream. ``VoDataLoader`` assembles the
-config-gated sources (packed shards and the synthetic mono and stereo
-streams) into the train, valid, test and stereo loaders.
+config-gated sources (the path datasets, packed shards and the synthetic
+mono and stereo streams) into the train, valid, test and stereo loaders.
 
 """
 
@@ -18,28 +18,15 @@ import collections
 import concurrent.futures as cf
 import itertools
 import os
-from typing import Dict, Iterable, Iterator, List, Optional, Sequence
+from typing import Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
 
 from deep_visual_slam_torch import resolve_device
+from deep_visual_slam_torch.data import handlers
+from deep_visual_slam_torch.data.base import ConcatDataset
 from deep_visual_slam_torch.parallel.mesh import world_and_rank
-
-
-class ConcatDataset:
-    """Concatenation of indexable datasets; empty ones are dropped."""
-
-    def __init__(self, datasets: Sequence):
-        self.datasets = [d for d in datasets if d is not None and len(d) > 0]
-        self._offsets = np.cumsum([0] + [len(d) for d in self.datasets])
-
-    def __len__(self) -> int:
-        return int(self._offsets[-1]) if self.datasets else 0
-
-    def __getitem__(self, idx: int, rng=None):
-        i = int(np.searchsorted(self._offsets, idx, side="right") - 1)
-        return self.datasets[i].__getitem__(idx - int(self._offsets[i]), rng)
 
 
 def collate(samples: List[Dict]) -> Dict:
@@ -204,16 +191,6 @@ def device_prefetch(
         yield out
 
 
-# Sources that read images from paths: they need an image decoder and come
-# with the path datasets.
-_PATH_SOURCES = {
-    "redwood": "ROADMAP.md §1, item 1f (the path datasets: RedwoodDataset)",
-    "mars_logger": "ROADMAP.md §1, items 3-4 (the path datasets: data/handlers.py)",
-    "custom_data": "ROADMAP.md §1, items 3-4 (the path datasets: data/handlers.py)",
-    "irs": "ROADMAP.md §1, items 3-4 (the path datasets: data/handlers.py)",
-}
-
-
 def _walk(ds, fn) -> None:
     """``fn`` on every leaf dataset under ``ds``."""
     if isinstance(ds, ConcatDataset):
@@ -229,11 +206,17 @@ class VoDataLoader:
     ``train_stereo_loader`` / ``valid_stereo_loader`` over known-baseline
     pairs (``None`` when no stereo source is enabled).
 
-    Ported sources: ``Dataset.packed`` (shards under
-    ``<root>/{train,valid,test}/<scene>``, ``root`` defaulting to
+    The sources, in the JAX package's order (which fixes the sample
+    order): ``Dataset.redwood.mono`` (``RedwoodDataHandler``, rooted at
+    ``root_dir`` or ``<Directory.data_dir>/redwood``),
+    ``Dataset.mars_logger.mono`` (rooted at ``root_dir`` or
+    ``<Directory.data_dir>/mars_logger``), ``Dataset.custom_data`` and
+    ``Dataset.irs`` (mono and stereo, scenes under
+    ``<Directory.data_dir>/{custom_data,irs}/{train,valid}``; a scene that
+    does not load is skipped with a warning), ``Dataset.packed`` (shards
+    under ``<root>/{train,valid,test}/<scene>``, ``root`` defaulting to
     ``<root_dir or Directory.data_dir>/packed``) and ``Dataset.synthetic``
-    (mono and stereo). A path source that is enabled raises
-    ``NotImplementedError``.
+    (stereo, then mono).
 
     ``Train.device_augment`` turns the host jitter off (the step jitters on
     the device). ``Train.uint8_h2d`` makes every train source emit uint8,
@@ -249,19 +232,45 @@ class VoDataLoader:
         self.seed = t.get("seed", 42)
         image_size = (t["img_h"], t["img_w"])
 
-        for name, where in _PATH_SOURCES.items():
-            for kind in ("mono", "stereo"):
-                if ds_cfg.get(name, {}).get(kind, False):
-                    raise NotImplementedError(
-                        f"Dataset.{name}.{kind}: this source reads image files and "
-                        f"is not ported yet ({where}); pack it or disable it"
-                    )
-
         train_sets: List = []
         valid_sets: List = []
         test_sets: List = []
         train_stereo_sets: List = []
         valid_stereo_sets: List = []
+
+        if ds_cfg.get("redwood", {}).get("mono", False):
+            from deep_visual_slam_torch.data.redwood import RedwoodDataHandler
+
+            h = RedwoodDataHandler(config, root_dir=root_dir)
+            train_sets.append(h.train_dataset)
+            valid_sets.append(h.valid_dataset)
+            test_sets.append(h.test_dataset)
+
+        if ds_cfg.get("mars_logger", {}).get("mono", False):
+            h = handlers.MarsLoggerDataHandler(config, root_dir=root_dir)
+            train_sets.append(h.train_dataset)
+            valid_sets.append(h.valid_dataset)
+
+        data_dir = config["Directory"]["data_dir"]
+        for name, label, mono_cls, stereo_fn in (
+            ("custom_data", "custom", handlers.CustomRigDataset, handlers.custom_stereo_dataset),
+            ("irs", "irs", handlers.IrsDataset, handlers.irs_stereo_dataset),
+        ):
+            root = os.path.join(data_dir, name)
+            if ds_cfg.get(name, {}).get("mono", False):
+                for fold, target, is_train in (("train", train_sets, True),
+                                               ("valid", valid_sets, False)):
+                    scenes = handlers.load_scenes(
+                        os.path.join(root, fold), f"{label} scene",
+                        lambda d: mono_cls(d, image_size, is_train, is_train))
+                    if scenes:
+                        target.append(ConcatDataset(scenes))
+            if ds_cfg.get(name, {}).get("stereo", False):
+                for fold, target, is_train in (("train", train_stereo_sets, True),
+                                               ("valid", valid_stereo_sets, False)):
+                    target.extend(handlers.load_scenes(
+                        os.path.join(root, fold), f"{label} stereo",
+                        lambda d: stereo_fn(d, image_size, is_train)))
 
         packed_cfg = ds_cfg.get("packed", {})
         if packed_cfg.get("mono", False):

@@ -2,20 +2,26 @@
 
 ``DepthLoader`` assembles the config-gated sources (``Dataset.nyu_depth_v2``
 and ``Dataset.redwood_depth``) into a shuffled train loader and an ordered
-valid loader, both dropping the last partial batch. The sources read RGB
-JPEGs and 16-bit depth PNGs, which needs an image decoder the port does not
-have yet (ROADMAP.md §1, item 1f): :func:`nyu_dataset` raises, and a caller
-hands ``DepthLoader`` its own :class:`DepthSampleDataset` subclasses
-instead.
+valid loader, both dropping the last partial batch. The sources are trees
+of RGB images and 16-bit depth PNGs in millimetres (:func:`nyu_dataset`);
+a caller may hand ``DepthLoader`` datasets of its own instead.
 """
 
 from __future__ import annotations
 
+import glob
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
-from deep_visual_slam_torch.data.base import DepthSampleDataset
-from deep_visual_slam_torch.data.loader import ConcatDataset, DataLoader
+from deep_visual_slam_torch.data.base import ConcatDataset, PathDepthDataset
+from deep_visual_slam_torch.data.loader import DataLoader
+
+
+def _paired_files(split_dir: str, rgb_glob: str, depth_glob: str):
+    rgbs = sorted(glob.glob(os.path.join(split_dir, rgb_glob)))
+    depths = sorted(glob.glob(os.path.join(split_dir, depth_glob)))
+    n = min(len(rgbs), len(depths))
+    return rgbs[:n], depths[:n]
 
 
 def nyu_dataset(
@@ -24,14 +30,21 @@ def nyu_dataset(
     image_size: Tuple[int, int],
     max_depth: float,
     is_train: bool,
-) -> DepthSampleDataset:
-    """The ``<root>/<split>`` tree of paired ``rgb``/``depth`` files (depth
-    in millimetres). Not ported yet: raises."""
-    raise NotImplementedError(
-        f"{os.path.join(root_dir, split)}: the NYU/Redwood file readers need an "
-        "image decoder and are not ported yet (ROADMAP.md §1, item 1f); pass "
-        "DepthLoader(config, train_dataset, valid_dataset) instead"
-    )
+) -> Optional[PathDepthDataset]:
+    """The ``<root>/<split>`` tree of paired files, ``rgb/*`` and ``depth/*``
+    or flat ``rgb_*`` and ``depth_*``, paired in name order (depth in
+    millimetres); ``None`` when the split has no directory or no pairs."""
+    split_dir = os.path.join(root_dir, split)
+    if not os.path.isdir(split_dir):
+        return None
+    if os.path.isdir(os.path.join(split_dir, "rgb")):
+        rgbs, depths = _paired_files(split_dir, "rgb/*", "depth/*")
+    else:
+        rgbs, depths = _paired_files(split_dir, "rgb_*", "depth_*")
+    if not rgbs:
+        return None
+    return PathDepthDataset(rgbs, depths, image_size, max_depth=max_depth,
+                            is_train=is_train, augment=is_train, depth_scale=1000.0)
 
 
 class DepthLoader:

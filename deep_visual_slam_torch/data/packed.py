@@ -10,7 +10,8 @@ by either package load in both::
 
 A training sample then costs three memmap row copies (and, on the fp32
 path, one uint8 -> fp32 scale) instead of three image decodes.
-``python -m deep_visual_slam_torch.pack_dataset`` writes synthetic scenes.
+``python -m deep_visual_slam_torch.pack_dataset`` writes synthetic scenes or
+packs the path sources a config enables (:func:`pack_from_paths`).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from deep_visual_slam_torch.data.base import SnippetDataset
+from deep_visual_slam_torch.data.base import SnippetDataset, read_image_rgb
 
 IMAGES = "images.npy"
 META = "meta.npz"
@@ -38,6 +39,36 @@ def pack_scene(
                          f"{frames_u8.shape}")
     os.makedirs(out_dir, exist_ok=True)
     np.save(os.path.join(out_dir, IMAGES), frames_u8)
+    meta = {"intrinsic": np.asarray(intrinsic, np.float32)}
+    if poses is not None:
+        meta["poses"] = np.asarray(poses, np.float32)
+    np.savez(os.path.join(out_dir, META), **meta)
+
+
+def pack_from_paths(
+    out_dir: str,
+    rgb_paths,
+    intrinsic: np.ndarray,
+    image_size: Tuple[int, int],
+    poses=None,
+    chunk: int = 64,
+) -> None:
+    """Decode and resize a path-listed sequence into a shard, ``chunk``
+    frames at a time through a memmap. A frame is stored as
+    ``(read_image_rgb(...) * 255).astype(uint8)``, the JAX package's
+    truncation, so that both packages write the same bytes."""
+    H, W = image_size
+    os.makedirs(out_dir, exist_ok=True)
+    n = len(rgb_paths)
+    out = np.lib.format.open_memmap(
+        os.path.join(out_dir, IMAGES), mode="w+", dtype=np.uint8, shape=(n, H, W, 3)
+    )
+    for start in range(0, n, chunk):
+        batch = [(read_image_rgb(p, H, W) * 255.0).astype(np.uint8)
+                 for p in rgb_paths[start : start + chunk]]
+        out[start : start + len(batch)] = np.stack(batch)
+    out.flush()
+    del out
     meta = {"intrinsic": np.asarray(intrinsic, np.float32)}
     if poses is not None:
         meta["poses"] = np.asarray(poses, np.float32)

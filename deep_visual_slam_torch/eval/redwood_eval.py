@@ -7,11 +7,13 @@ an optional median-translation-ratio scale correction, per-pair errors,
 and the trajectory's ATE (Umeyama-aligned, and with the reference's
 unnormalized scale beside it), RPE and KITTI segment errors.
 
-The port has no image decoder (the card's machine has none): frames come
-through ``read_image(path, H, W) -> uint8 [H, W, 3] RGB``, which the caller
-supplies; without one the evaluator raises (the file readers are
-``ROADMAP.md`` §1, item 1f). The per-pair CSV is written with the ``csv``
-module; the trajectory figures (matplotlib) are not ported (item 7).
+Frames come through ``read_image(path, H, W) -> uint8 [H, W, 3] RGB``:
+by default ``data/base.py:read_image_u8`` (cv2), or a reader the caller
+supplies. With an output directory the evaluator writes the per-pair CSV
+(the ``csv`` module). It keeps each scene's aligned prediction and ground
+truth in ``trajectories``; the CLI draws the four-view figure
+(:meth:`RedwoodEvaluator._plot_scene`) and the path and speed heatmaps from
+them, by matplotlib, which is imported where they are drawn.
 """
 
 from __future__ import annotations
@@ -19,12 +21,13 @@ from __future__ import annotations
 import csv
 import glob
 import os
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from deep_visual_slam_torch import resolve_device
+from deep_visual_slam_torch.data.base import read_image_u8
 from deep_visual_slam_torch.data.redwood import TEST_SCENES, load_posegraph_json
 from deep_visual_slam_torch.eval.trajectory import (
     accumulate_trajectory,
@@ -65,7 +68,9 @@ def make_pose_fn(
 
 
 class RedwoodEvaluator:
-    """Offline evaluation over the Redwood scenes under ``root_dir/fold``."""
+    """Offline evaluation over the Redwood scenes under ``root_dir/fold``;
+    ``trajectories[scene]`` holds the evaluated scene's Umeyama-aligned
+    prediction and its ground truth, [N, 4, 4] each."""
 
     def __init__(
         self,
@@ -79,7 +84,8 @@ class RedwoodEvaluator:
         self.root_dir = root_dir
         self.image_size = image_size
         self.fold = fold
-        self.read_image = read_image
+        self.read_image = read_image or read_image_u8
+        self.trajectories: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
 
     def _scene_frames(self, scene: str):
         scene_dir = os.path.join(self.root_dir, self.fold, scene)
@@ -90,11 +96,6 @@ class RedwoodEvaluator:
 
     def predict_scene_relatives(self, image_files: Sequence[str]) -> np.ndarray:
         """The predicted relative pose of every consecutive pair [N-1, 4, 4]."""
-        if self.read_image is None:
-            raise NotImplementedError(
-                "RedwoodEvaluator needs read_image(path, H, W) -> uint8 [H, W, 3] RGB: "
-                "the port has no image decoder (ROADMAP.md §1, item 1f)"
-            )
         H, W = self.image_size
         frames = [self.read_image(p, H, W).astype(np.float32) / 255.0 for p in image_files]
         pairs = np.stack([
@@ -126,7 +127,8 @@ class RedwoodEvaluator:
             rows.append([i, pos_e, rot_e, *pos_d, *rot_d])
 
         traj_pred = accumulate_trajectory(rel_pred, poses_gt[0])
-        _, _, ate_stats = ate_rmse(traj_pred, poses_gt, align=True)
+        _, aligned, ate_stats = ate_rmse(traj_pred, poses_gt, align=True)
+        self.trajectories[scene] = (aligned, poses_gt)
         ref_ate, _, _ = ate_rmse(traj_pred, poses_gt, align=True, reference_scale_bug=True)
         rpe_stats = {
             k: v for k, v in rpe(traj_pred, poses_gt).items() if not isinstance(v, np.ndarray)
@@ -166,3 +168,31 @@ class RedwoodEvaluator:
                 continue
             results.append(self.evaluate_scene(scene, output_dir, use_scale_correction))
         return results
+
+    @staticmethod
+    def _plot_scene(scene: str, traj_pred: np.ndarray, traj_gt: np.ndarray, out_path: str) -> None:
+        """Four views of the trajectories: 3D, top (x-z), front (x-y) and
+        side (z-y), the prediction solid blue, the ground truth dashed red."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        p = traj_pred[:, :3, 3]
+        g = traj_gt[:, :3, 3]
+        fig = plt.figure(figsize=(12, 10))
+        ax = fig.add_subplot(221, projection="3d")
+        ax.plot(*p.T, "b-", label="pred")
+        ax.plot(*g.T, "r--", label="gt")
+        ax.set_title(f"{scene} 3D")
+        ax.legend()
+        for idx, (i, j, name) in enumerate(
+            [(0, 2, "top (x-z)"), (0, 1, "front (x-y)"), (2, 1, "side (z-y)")]
+        ):
+            ax2 = fig.add_subplot(222 + idx)
+            ax2.plot(p[:, i], p[:, j], "b-")
+            ax2.plot(g[:, i], g[:, j], "r--")
+            ax2.set_title(name)
+            ax2.axis("equal")
+        fig.savefig(out_path, dpi=100)
+        plt.close(fig)

@@ -1,10 +1,11 @@
 """Validation-time trajectory evaluation (port of ``eval/traj_eval.py``):
 relative poses accumulated batch by batch, composed into absolute
-trajectories and scored. The matplotlib rendering (``eval_plot``) is not
-ported."""
+trajectories, scored, and drawn (``eval_plot``, matplotlib imported where
+it draws)."""
 
 from __future__ import annotations
 
+import io
 from typing import Dict, List
 
 import numpy as np
@@ -47,6 +48,32 @@ class EvalTrajectory:
         _, _, stats = ate_rmse(pred, gt, align=True)
         stats.update({k: v for k, v in rpe(pred, gt).items() if not isinstance(v, np.ndarray)})
         return stats
+
+    def eval_plot(self, title: str = "trajectory") -> np.ndarray:
+        """The predicted (and ground-truth) positions in 3D as an [H, W, 3]
+        uint8 image: the figure written as a PNG and decoded."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        import PIL.Image
+
+        pred, gt = self.trajectories()
+        fig = plt.figure(figsize=(8, 6), dpi=100)
+        ax = fig.add_subplot(111, projection="3d")
+        p = pred[:, :3, 3]
+        ax.plot(p[:, 0], p[:, 1], p[:, 2], "b-", label="pred")
+        ax.scatter(p[0, 0], p[0, 1], p[0, 2], c="g", marker="o", s=40)
+        if gt is not None:
+            g = gt[:, :3, 3]
+            ax.plot(g[:, 0], g[:, 1], g[:, 2], "r--", label="gt")
+        ax.set_title(title)
+        ax.legend()
+        buf = io.BytesIO()
+        fig.savefig(buf, format="png")
+        plt.close(fig)
+        buf.seek(0)
+        return np.asarray(PIL.Image.open(buf).convert("RGB"))
 
 
 def _host(batch) -> np.ndarray:

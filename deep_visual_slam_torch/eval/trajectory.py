@@ -5,12 +5,13 @@ camera-to-world poses.
 
 ``umeyama_alignment`` uses the normalized scale; ``reference_scale_bug``
 reproduces the reference's unnormalized one for side-by-side numbers (the
-Redwood evaluator reports both). ``plot_path_heatmaps`` (matplotlib) is not
-ported.
+Redwood evaluator reports both). ``plot_path_heatmaps`` draws with
+matplotlib, imported where it draws.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -223,3 +224,81 @@ def speeds_from_poses(poses: np.ndarray, fps: float = 30.0) -> np.ndarray:
     """Per-frame speed (m/s) from consecutive camera positions, 0 first."""
     step = np.linalg.norm(np.diff(positions(poses), axis=0), axis=1)
     return np.concatenate([[0.0], step]) * fps
+
+
+def plot_path_heatmaps(
+    seq: str,
+    poses_gt: np.ndarray,
+    poses_pred: np.ndarray,
+    out_dir: str,
+    decision: Optional[np.ndarray] = None,
+    speed: Optional[np.ndarray] = None,
+    window_size: int = 11,
+    fps: float = 30.0,
+) -> List[str]:
+    """KITTI-style panels into ``out_dir``: ``{seq}_path_2d.png`` (the x/z
+    paths, ground truth red and prediction blue, on square axes), with
+    ``decision`` ``{seq}_decision_smoothed.png`` (its moving average over
+    ``window_size`` in percent, scattered over the predicted path), and
+    ``{seq}_speed.png`` (``speed``, by default from the predicted poses at
+    ``fps``, in m/s). Returns the paths written."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    os.makedirs(out_dir, exist_ok=True)
+    xg, zg = positions(poses_gt)[:, 0], positions(poses_gt)[:, 2]
+    xp, zp = positions(poses_pred)[:, 0], positions(poses_pred)[:, 2]
+    written: List[str] = []
+
+    def _square(ax):
+        xlim, ylim = ax.get_xlim(), ax.get_ylim()
+        xmean, ymean = np.mean(xlim), np.mean(ylim)
+        radius = max(abs(lim - mean) for lims, mean in ((xlim, xmean), (ylim, ymean))
+                     for lim in lims)
+        ax.set_xlim([xmean - radius, xmean + radius])
+        ax.set_ylim([ymean - radius, ymean + radius])
+
+    fig = plt.figure(figsize=(6, 6), dpi=100)
+    ax = plt.gca()
+    ax.plot(xg, zg, "r-", label="GT")
+    ax.plot(xp, zp, "b-", label="Pred")
+    ax.plot(0, 0, "ko", label="Start point")
+    ax.legend(loc="upper right", prop={"size": 10})
+    ax.set_xlabel("x (m)")
+    ax.set_ylabel("z (m)")
+    _square(ax)
+    ax.set_title("2D path")
+    path = os.path.join(out_dir, f"{seq}_path_2d.png")
+    fig.savefig(path, bbox_inches="tight", pad_inches=0.1)
+    plt.close(fig)
+    written.append(path)
+
+    def _heatmap(values, label_fmt, title, fname):
+        values = np.asarray(values, np.float64)
+        n = min(len(values), len(xp))
+        fig = plt.figure(figsize=(8, 6), dpi=100)
+        ax = plt.gca()
+        cax = ax.scatter(xp[:n], zp[:n], marker="o", c=values[:n])
+        ax.set_xlabel("x (m)")
+        ax.set_ylabel("z (m)")
+        _square(ax)
+        ticks = np.floor(np.linspace(values[:n].min(), values[:n].max(), 5))
+        cbar = fig.colorbar(cax, ticks=ticks)
+        cbar.ax.set_yticklabels([label_fmt.format(t) for t in ticks])
+        ax.set_title(title)
+        out = os.path.join(out_dir, fname)
+        fig.savefig(out, bbox_inches="tight", pad_inches=0.1)
+        plt.close(fig)
+        written.append(out)
+
+    if decision is not None:
+        smoothed = moving_average(np.insert(decision, 0, 1.0), window_size)
+        _heatmap(np.insert(smoothed, 0, 0.0) * 100.0, "{:.0f}%",
+                 f"decision heatmap : moving average filter {window_size}",
+                 f"{seq}_decision_smoothed.png")
+    if speed is None:
+        speed = speeds_from_poses(poses_pred, fps)
+    _heatmap(speed, "{:.0f}m/s", "speed heatmap", f"{seq}_speed.png")
+    return written

@@ -7,8 +7,8 @@
 Streams the validation split through DepthNet in the config's compute dtype
 and writes one CSV row (``samples``, then the seven metrics of
 :class:`DepthMetrics` and ``abs_diff``/``abs_log``). Without ``--weights``
-the network keeps its random initialization (seed 0). The config's
-NYU/Redwood file sources are not ported yet (ROADMAP.md §1, item 1f);
+the network keeps its random initialization (seed 0). The data are the
+config's NYU/Redwood file trees (``data/nyu.py``, read with cv2);
 :func:`evaluate` takes any loader of depth batches.
 """
 

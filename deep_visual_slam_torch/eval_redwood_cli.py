@@ -7,11 +7,12 @@
         [--no_scale_correction] [--device cpu]
 
 Writes ``{scene}_pairs.csv`` per scene and ``summary.json`` (the list of the
-scenes' result dicts) under ``--output`` and prints one line a scene.
-Without ``--weights`` PoseNet keeps its random initialization (seed 0).
-The port has no image decoder, so from the command line it raises
-``NotImplementedError`` (``ROADMAP.md`` §1, item 1f) once a scene's frames
-are to be read; :func:`evaluate_redwood` takes a ``read_image`` function.
+scenes' result dicts) under ``--output``, and prints one line a scene
+(:func:`evaluate_redwood`); then :func:`main` draws each scene's trajectory
+figure and path and speed heatmaps there (matplotlib). Without
+``--weights`` PoseNet keeps its random initialization (seed 0). Frames are
+read with cv2 (``data/base.py``); :func:`evaluate_redwood` also takes a
+``read_image`` function.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 from deep_visual_slam_torch import resolve_device
 from deep_visual_slam_torch.data.redwood import TEST_SCENES
 from deep_visual_slam_torch.eval.redwood_eval import RedwoodEvaluator, make_pose_fn
+from deep_visual_slam_torch.eval.trajectory import plot_path_heatmaps
 from deep_visual_slam_torch.utils.checkpoint import load_network_states, network_state
 
 
@@ -46,10 +48,11 @@ def evaluate_redwood(
     use_scale_correction: bool = True,
     read_image: Optional[Callable[[str, int, int], np.ndarray]] = None,
     device=None,
-) -> List[Dict]:
+) -> Tuple[List[Dict], Dict[str, Tuple[np.ndarray, np.ndarray]]]:
     """Evaluate ``pose_model`` on ``data_root``'s test scenes, write the CSVs
     and ``summary.json`` under ``output``, print a line a scene; returns the
-    results."""
+    results and the evaluator's ``trajectories`` (each scene's aligned
+    prediction and ground truth)."""
     pose_fn = make_pose_fn(pose_model, invert=True, device=device)
     evaluator = RedwoodEvaluator(pose_fn, data_root, image_size=image_size,
                                  read_image=read_image)
@@ -64,7 +67,7 @@ def evaluate_redwood(
             f"RPE {r['rpe_pos_mean']:.4f} m / {r['rpe_rot_mean_deg']:.3f} deg, "
             f"scale {r['scale_factor']:.3f}"
         )
-    return results
+    return results, evaluator.trajectories
 
 
 def main(argv=None) -> List[Dict]:
@@ -90,11 +93,16 @@ def main(argv=None) -> List[Dict]:
     pose_model = PoseNet(generator=torch.Generator().manual_seed(0))
     if args.weights:
         load_pose_weights(pose_model, args.weights)
-    return evaluate_redwood(
+    results, trajectories = evaluate_redwood(
         pose_model, root, (t["img_h"], t["img_w"]), args.output,
         scenes=args.scenes or TEST_SCENES,
         use_scale_correction=not args.no_scale_correction, device=device,
     )
+    for scene, (aligned, gt) in trajectories.items():
+        RedwoodEvaluator._plot_scene(scene, aligned, gt,
+                                     os.path.join(args.output, f"{scene}_trajectory.png"))
+        plot_path_heatmaps(scene, gt, aligned, args.output)
+    return results
 
 
 if __name__ == "__main__":

@@ -3,18 +3,18 @@
 
     python3 -m deep_visual_slam_torch.predict_depth_anything \\
         --weights depth_anything_v2_vits.pth --encoder vits \\
-        --input img_or_dir [--output results/depth_anything] [--max_depth 20]
+        --input img_or_dir [--output results/depth_anything] [--max_depth 20] \\
+        [--colormap]
 
 Loads a reference checkpoint (``.pth``) or the JAX package's ``.npz`` cache
 of one, pads each frame with zeros to the 14-pixel patch grid, runs the
 model (bf16 under autocast on the card, as the JAX CLI runs bfloat16; fp32
 with ``--device cpu``, the plain path), crops, and writes
 ``<output>/<stem>_depth.png``: depth in millimetres, 16-bit, written by
-``utils/png.py``. The frames come through a caller's ``read_image(path) ->
-[H, W, 3] uint8 RGB`` (``main(read_image=...)``); the port has no image
-decoder yet, so without one ``main`` raises ``NotImplementedError``
-(ROADMAP.md §1, item 1f), and so does ``--colormap`` (cv2's MAGMA map,
-item 7).
+``utils/png.py``; with ``--colormap`` also ``<stem>_depth_vis.png``, the
+depth's min-max range in cv2's MAGMA map. Frames are read by
+:func:`read_rgb` (cv2, imported there, as the JAX CLI reads them) or by a
+caller's ``read_image(path) -> [H, W, 3] uint8 RGB`` (``main(read_image=...)``).
 """
 
 from __future__ import annotations
@@ -48,13 +48,32 @@ def infer_depth(model, rgb: np.ndarray, device: torch.device, dtype: torch.dtype
     return depth[0, :H, :W].float().cpu().numpy()
 
 
+def read_rgb(path: str) -> Optional[np.ndarray]:
+    """The image file ``path`` as [H, W, 3] uint8 RGB; ``None`` when cv2
+    cannot read it."""
+    import cv2
+
+    bgr = cv2.imread(path)
+    return None if bgr is None else cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+
+
+def write_colormap(path: str, depth: np.ndarray) -> None:
+    """``depth`` [H, W] scaled to its min-max range, truncated to uint8 and
+    written through cv2's MAGMA colormap as a PNG."""
+    import cv2
+
+    norm = (depth - depth.min()) / max(float(np.ptp(depth)), 1e-6)
+    cv2.imwrite(path, cv2.applyColorMap((norm * 255).astype(np.uint8), cv2.COLORMAP_MAGMA))
+
+
 def main(
     argv=None,
     read_image: Optional[Callable[[str], np.ndarray]] = None,
     device=None,
 ) -> List[str]:
     """The CLI; returns the depth PNGs written. ``device`` (or
-    ``--device``) defaults to CUDA, which must be present."""
+    ``--device``) defaults to CUDA, which must be present; ``read_image``
+    defaults to :func:`read_rgb`."""
     parser = argparse.ArgumentParser(description="Depth-Anything-V2 inference")
     parser.add_argument("--weights", required=True,
                         help=".pth torch checkpoint or cached .npz")
@@ -74,16 +93,7 @@ def main(
     from deep_visual_slam_torch.utils.png import write_png16
     from deep_visual_slam_torch.utils.pretrained import load_depth_anything_state_dict
 
-    if args.colormap:
-        raise NotImplementedError(
-            "--colormap needs cv2's MAGMA colormap, which the port does not have "
-            "(ROADMAP.md §1, item 7)"
-        )
-    if read_image is None:
-        raise NotImplementedError(
-            "the port has no image decoder yet (ROADMAP.md §1, item 1f): call "
-            "main(read_image=...) with a reader of [H, W, 3] uint8 RGB frames"
-        )
+    reader = read_image or read_rgb
     device = resolve_device(device if device is not None else args.device)
     if os.path.isdir(args.input):
         files = sorted(
@@ -103,7 +113,7 @@ def main(
     os.makedirs(args.output, exist_ok=True)
     written = []
     for path in files:
-        rgb = read_image(path)
+        rgb = reader(path)
         if rgb is None:
             print(f"skipping unreadable {path}")
             continue
@@ -112,6 +122,8 @@ def main(
         out16 = os.path.join(args.output, f"{stem}_depth.png")
         write_png16(out16, (depth * 1000.0).astype(np.uint16))
         written.append(out16)
+        if args.colormap:
+            write_colormap(os.path.join(args.output, f"{stem}_depth_vis.png"), depth)
         print(f"{path}: depth [{depth.min():.2f}, {depth.max():.2f}] m -> {out16}")
     return written
 

@@ -5,9 +5,8 @@
 Trains on the card unless ``--device cpu``; resumes from the newest
 checkpoint under ``<Directory.weights>/depth_<experiment_name>``. On N
 cards: ``torchrun --nproc_per_node N -m deep_visual_slam_torch.train_depth
---config ...`` (``Train.batch_size`` is the global batch). The
-config's NYU/Redwood file sources are not ported yet (they need an image
-decoder, ROADMAP.md §1, item 1f) and raise ``NotImplementedError``; from
+--config ...`` (``Train.batch_size`` is the global batch). The data are
+the config's NYU/Redwood file trees (``data/nyu.py``, read with cv2); from
 Python, ``Trainer(config, data_loader=DepthLoader(config, train, valid))``
 trains on datasets of one's own.
 """

@@ -17,9 +17,13 @@ one rank per card, as the JAX trainer's mesh (``use_mesh``): each rank
 loads its rows of every global batch, the steps run the networks under DDP
 (``training/steps.py``) and return the global batch's losses, validation
 gathers the predicted poses of all ranks, rank 0 alone logs and writes the
-checkpoints, and every rank resumes from them. The JAX trainer's image
-panel and trajectory plot (matplotlib) are not ported (ROADMAP.md §1,
-item 7).
+checkpoints, and every rank resumes from them.
+
+Where the metrics writer takes images (tensorboardX imported), each
+validation also logs the first batch's panel [target | warped left | warped
+right | disparity] (``utils/plot.py``) and the trajectory figure
+(``EvalTrajectory.eval_plot``), both drawn with matplotlib; unlike the JAX
+trainer, which prints and goes on, a failure to draw them raises.
 """
 
 from __future__ import annotations
@@ -212,6 +216,14 @@ class Trainer:
         count = 0
         for batch in device_prefetch(self.data_loader.valid_loader, self.device):
             outputs, losses = self.eval_step(batch, self.generator)
+            if count == 0 and self.writer.takes_images:
+                from deep_visual_slam_torch.utils.plot import vo_panel
+
+                keys = ("color_left_0", "color_right_0", "disp_0")
+                self.writer.image("valid/panel", vo_panel(
+                    {"target_image": _host(batch["target_image"][:1])},
+                    {k: _host(outputs[k][:1]) for k in keys},
+                ), self.state.step)
             for k, v in losses.items():
                 agg[k] = agg.get(k, 0.0) + v.item()
             count += 1
@@ -224,6 +236,9 @@ class Trainer:
         metrics = {f"valid/{k}": v / count for k, v in agg.items()}
         metrics.update({f"valid/{k}": v for k, v in self.eval_tool.metrics().items()})
         self.writer.scalars(metrics, self.state.step)
+        if self.writer.takes_images:
+            self.writer.image("valid/trajectory", self.eval_tool.eval_plot(f"epoch {epoch}"),
+                              self.state.step)
         self.writer.flush()
         return metrics
 
@@ -256,6 +271,11 @@ class Trainer:
                 self.save_checkpoint(epoch)
         self.writer.close()
         self.ckpt.close()
+
+
+def _host(x: torch.Tensor):
+    """A tensor as a float32 numpy array on the host."""
+    return x.detach().float().cpu().numpy()
 
 
 def _start_profiler(device: torch.device):

@@ -2,9 +2,9 @@
 
 ``MetricsWriter`` always appends ``{"tag", "value", "step"}`` lines to
 ``<log_dir>/metrics.jsonl``; it also writes TensorBoard event files where
-``tensorboardX`` can be imported, as the JAX package does. A writer made
-with no ``log_dir`` (a data-parallel trainer's ranks but the first) writes
-nothing.
+``tensorboardX`` can be imported, as the JAX package does, and only then
+takes images (``takes_images``). A writer made with no ``log_dir`` (a
+data-parallel trainer's ranks but the first) writes nothing.
 """
 
 from __future__ import annotations
@@ -41,6 +41,21 @@ class MetricsWriter:
         self._jsonl.write(json.dumps({"tag": tag, "value": value, "step": int(step)}) + "\n")
         if self._tb is not None:
             self._tb.add_scalar(tag, value, step)
+
+    @property
+    def takes_images(self) -> bool:
+        """Whether :meth:`image` writes anywhere (a TensorBoard sink)."""
+        return self._tb is not None
+
+    def image(self, tag: str, image: np.ndarray, step: int) -> None:
+        """An [H, W, 3] uint8 image, or float in [0, 1], to the TensorBoard
+        sink; nothing without one."""
+        if self._tb is None:
+            return
+        img = np.asarray(image)
+        if img.dtype != np.uint8:
+            img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+        self._tb.add_image(tag, img, step, dataformats="HWC")
 
     def scalars(self, values: Dict[str, float], step: int, prefix: str = "") -> None:
         for k, v in values.items():

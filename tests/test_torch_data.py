@@ -255,11 +255,20 @@ def _check_flags(tmp_path, mixed):
                     atol=2e-6 if mixed else 0.0)
 
 
-def test_vo_data_loader_raises_for_path_sources(tmp_path):
-    """Each source that reads image files raises, naming the ROADMAP item,
-    instead of being skipped."""
+def test_vo_data_loader_raises_for_path_sources(tmp_path, capsys):
+    """Each source that reads image files is wired as the JAX package's:
+    enabled over a data directory whose one scene does not load, it raises
+    nothing, skips the scene with JAX's warning, and adds no sample."""
     for source in ("redwood", "mars_logger", "custom_data", "irs"):
-        cfg, _ = _configs(tmp_path / source)
-        cfg["Dataset"][source] = {"mono": source != "irs", "stereo": source == "irs"}
-        with pytest.raises(NotImplementedError, match=f"Dataset.{source}.*ROADMAP"):
-            loader.VoDataLoader(cfg)
+        root = tmp_path / source
+        cfg, jcfg = _configs(root)
+        (root / source / "train" / "broken").mkdir(parents=True)
+        for c in (cfg, jcfg):
+            c["Dataset"][source] = {"mono": source != "irs", "stereo": source == "irs"}
+        ours = loader.VoDataLoader(cfg)
+        port_out = capsys.readouterr().out
+        theirs = jloader.VoDataLoader(jcfg)
+        assert port_out == capsys.readouterr().out
+        assert port_out.startswith("Warning: skipping") and "broken" in port_out
+        for name in ("train_dataset", "valid_dataset", "test_dataset", "train_stereo_dataset"):
+            assert len(getattr(ours, name)) == len(getattr(theirs, name)), (source, name)

@@ -14,7 +14,7 @@ inputs on both sides.
 - ``apply_depth_pretrained`` against the JAX graft: bit for bit.
 - The trainer: the JAX package's ``Trainer(use_mesh=False)`` reads an NYU
   tree written with cv2; the port's ``DepthLoader`` is handed datasets that
-  the test's own cv2 reader decodes from the same files. The JAX trainer
+  the port's cv2 readers decode from the same files. The JAX trainer
   starts from the port's initial weights (carried by ``convert_depthnet``,
   the plain decoder as ``phase_fused=False``, no JAX ``init`` compiled); two
   steps and a validation are held to ``tests/test_torch_train_step.py``'s
@@ -50,8 +50,7 @@ from deep_visual_slam_tpu.utils.pretrained import apply_depth_pretrained as jax_
 from deep_visual_slam_tpu.utils.torch_weights import convert_depthnet
 
 from deep_visual_slam_torch import eval_depth_cli, train_depth
-from deep_visual_slam_torch.data import nyu
-from deep_visual_slam_torch.data.base import DepthSampleDataset
+from deep_visual_slam_torch.data.base import DepthSampleDataset, PathDepthDataset
 from deep_visual_slam_torch.data.nyu import DepthLoader
 from deep_visual_slam_torch.eval.metrics import DepthMetrics
 from deep_visual_slam_torch.models import DepthNet
@@ -230,18 +229,14 @@ def _write_nyu_split(split_dir, n, seed):
         cv2.imwrite(os.path.join(split_dir, "depth", f"{i:03d}.png"), depth)
 
 
-class Cv2DepthDataset(DepthSampleDataset):
-    """The test's own reader of the files ``_write_nyu_split`` wrote, as the
-    JAX package decodes them (cv2, BGR -> RGB, /255; depth unchanged)."""
+class Cv2DepthDataset(PathDepthDataset):
+    """The files ``_write_nyu_split`` wrote, read by the port's own cv2
+    readers (BGR -> RGB, /255; depth unchanged)."""
 
     def __init__(self, split_dir, is_train):
         self.rgbs = sorted(glob.glob(os.path.join(split_dir, "rgb", "*")))
         self.depths = sorted(glob.glob(os.path.join(split_dir, "depth", "*")))
-        super().__init__(len(self.rgbs), (H, W), 10.0, is_train, is_train, 1000.0)
-
-    def _load(self, idx):
-        img = cv2.cvtColor(cv2.imread(self.rgbs[idx], cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB)
-        return img.astype(np.float32) / 255.0, cv2.imread(self.depths[idx], cv2.IMREAD_UNCHANGED)
+        super().__init__(self.rgbs, self.depths, (H, W), 10.0, is_train, is_train, 1000.0)
 
 
 def test_depth_sample_dataset_matches_jax(tmp_path):
@@ -271,8 +266,8 @@ def test_depth_sample_dataset_matches_jax(tmp_path):
     assert not evaluation.augment
     sample = evaluation[1]
     assert sample["depth"].max() <= 0.4 and sample["valid_mask"].mean() > 0.9
-    with pytest.raises(NotImplementedError, match="1f"):
-        DepthSampleDataset(1, (H, W))[0]
+    with pytest.raises(FileNotFoundError):
+        PathDepthDataset([split + "/missing.png"], port.depths[:1], (H, W))[0]
 
 
 def _random_state_dict(module, seed, prefix=""):
@@ -509,11 +504,10 @@ def test_depth_trainer_resumes_at_epoch_boundary(tmp_path):
     assert c.validate(2) == a.validate(2)
 
 
-def test_depth_entry_points(tmp_path, monkeypatch):
+def test_depth_entry_points(tmp_path):
     """``train_depth`` and ``eval_depth_cli`` on an NYU tree under
-    ``tmp_path``: the file sources raise ``NotImplementedError`` (no image
-    decoder yet), the card is the default device, and with the test's cv2
-    reader in place of the sources they train, checkpoint and write JAX's
+    ``tmp_path``: the card is the default device, and on the CPU, reading
+    the tree through ``nyu_dataset``, they train, checkpoint and write JAX's
     CSV columns with the validation's metrics, from the checkpoint
     directory and from a params-only file alike."""
     _nyu_tree(tmp_path, train=2, test=2)
@@ -522,15 +516,10 @@ def test_depth_entry_points(tmp_path, monkeypatch):
     csv_path = tmp_path / "out" / "eval.csv"
     for main, args in ((train_depth.main, []),
                        (eval_depth_cli.main, ["--output", str(csv_path)])):
-        with pytest.raises(NotImplementedError, match="1f"):
-            main(["--config", str(cfg_path), "--device", "cpu", *args])
         if not torch.cuda.is_available():  # no fallback: the default device is CUDA
             with pytest.raises(RuntimeError, match="CUDA"):
                 main(["--config", str(cfg_path), *args])
 
-    monkeypatch.setattr(nyu, "nyu_dataset",
-                        lambda root, split, size, max_depth, is_train:
-                        Cv2DepthDataset(os.path.join(root, split), is_train))
     train_depth.main(["--config", str(cfg_path), "--device", "cpu"])
     exp = "depth_d_ep1_bs2_lr0.0001_64x96"
     log = [json.loads(line) for line in (tmp_path / "tb" / exp / "metrics.jsonl").open()]

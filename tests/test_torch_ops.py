@@ -145,20 +145,29 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 def test_port_imports_no_jax():
     """A static scan of the port's sources and chip_smoke.py: no import of
-    jax, flax, optax or the JAX package (the interpreter may have loaded
-    JAX already, so sys.modules proves nothing), nor of cv2, which the
-    card's machine lacks."""
-    banned = {"jax", "jaxlib", "flax", "optax", "deep_visual_slam_tpu", "cv2"}
+    jax, flax, optax or the JAX package anywhere (the interpreter may have
+    loaded JAX already, so sys.modules proves nothing), and none of cv2,
+    matplotlib or PIL where a module is imported: they are imported inside
+    the functions that decode, write video or draw, since the card's
+    machine lacks some of them."""
+    banned = {"jax", "jaxlib", "flax", "optax", "deep_visual_slam_tpu"}
+    host_only = {"cv2", "matplotlib", "PIL"}
     files = sorted((REPO / "deep_visual_slam_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+
+    def imports(node, at_import):
+        """(module name, runs when the module is imported) of every import."""
+        if isinstance(node, ast.Import):
+            yield from ((a.name, at_import) for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or "", at_import
+        inside_function = isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda))
+        for child in ast.iter_child_nodes(node):
+            yield from imports(child, at_import and not inside_function)
+
     for path in files:
-        for node in ast.walk(ast.parse(path.read_text(), str(path))):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""]
-            else:
-                continue
-            for name in names:
-                assert name.split(".")[0] not in banned, f"{path}: imports {name}"
+        for name, at_import in imports(ast.parse(path.read_text(), str(path)), True):
+            root = name.split(".")[0]
+            assert root not in banned, f"{path}: imports {name}"
+            assert not (at_import and root in host_only), f"{path}: imports {name} at import"

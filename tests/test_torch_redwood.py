@@ -8,13 +8,13 @@
   with cv2: JAX's evaluator runs its ``PoseNet`` with the port's weights
   (``convert_posenet``) and reads the JPEGs itself; the port's, through the
   CLI's ``evaluate_redwood``, reads them with the test's own cv2 reader
-  (the port has no image decoder). Every key of the result dicts and every
+  (a caller's reader). Every key of the result dicts and every
   CSV row: rtol 2e-4, atol 1e-6. XLA and PyTorch sum the networks'
   convolutions in other orders, and the scale correction (a median ratio
   of translations of ~1e-3) and the alignment carry that into every
   metric: at most 6.1e-5 relative measured (the rotation RPE's spread).
 - ``eval_redwood_cli.main``: without a card it raises unless given the CPU,
-  and without an image reader it raises ``NotImplementedError``.
+  and without an image reader of the caller's it reads with cv2.
 - ``scripts/jax_checkpoint_to_torch.py`` on a JAX VO checkpoint written by
   the JAX package's ``CheckpointManager``: the port reads back exactly
   ``depthnet_from_jax``/``posenet_from_jax`` of the same variables.
@@ -136,10 +136,12 @@ def test_redwood_evaluator_matches_jax(tmp_path, rng):
     want = JaxRedwoodEvaluator(jax_fn, str(tmp_path), image_size=(H, W)).evaluate(
         scenes=SCENES + ("loft",))
     out = tmp_path / "out"
-    got = eval_redwood_cli.evaluate_redwood(
+    got, trajectories = eval_redwood_cli.evaluate_redwood(
         pose, str(tmp_path), (H, W), str(out), scenes=SCENES + ("loft",),
         read_image=_read_image, device="cpu")
     assert [r["scene"] for r in got] == [r["scene"] for r in want] == list(SCENES)
+    assert list(trajectories) == list(SCENES)
+    assert all(a.shape == g.shape == (FRAMES, 4, 4) for a, g in trajectories.values())
     summary = json.loads((out / "summary.json").read_text())
     for ours, theirs, saved in zip(got, want, summary):
         assert ours.keys() == theirs.keys() == saved.keys()
@@ -168,14 +170,27 @@ def test_redwood_evaluator_matches_jax(tmp_path, rng):
 
 
 def test_eval_redwood_cli_needs_a_card_and_a_reader(tmp_path, rng):
+    """No card: the default device refuses (no fallback). With ``--device
+    cpu`` the CLI reads the frames itself (cv2) and gives what the evaluator
+    gives with the test's reader, and writes the scene's figures."""
+    import yaml
+
     _write_tree(tmp_path, rng)
-    args = ["--config", str(ROOT / "configs" / "vo.yaml"), "--data_root", str(tmp_path),
+    cfg = tmp_path / "vo.yaml"
+    cfg.write_text(yaml.safe_dump({"Train": {"img_h": H, "img_w": W}}))
+    args = ["--config", str(cfg), "--data_root", str(tmp_path),
             "--output", str(tmp_path / "out"), "--scenes", "apartment"]
     if not torch.cuda.is_available():  # no fallback: the default device is CUDA
         with pytest.raises(RuntimeError, match="CUDA"):
             eval_redwood_cli.main(args)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eval_redwood_cli.main(args + ["--device", "cpu"])
+    got = eval_redwood_cli.main(args + ["--device", "cpu"])
+    want, _ = eval_redwood_cli.evaluate_redwood(
+        PoseNet(generator=torch.Generator().manual_seed(0)), str(tmp_path), (H, W),
+        str(tmp_path / "want"), scenes=("apartment",), read_image=_read_image, device="cpu")
+    assert got == want
+    for name in ("apartment_trajectory.png", "apartment_path_2d.png", "apartment_speed.png"):
+        assert (tmp_path / "out" / name).stat().st_size > 0
+        assert not (tmp_path / "want" / name).exists()
 
 
 def _load_script():
