@@ -164,6 +164,19 @@ the run with a non-zero exit code and no result line:
    (``device_prefetch`` over the test loader, so the host's render,
    collation and copy to the card are inside the clock), over
    ``PREDICT_PASSES`` passes, and over the batches already on the card.
+16. The ROS2 node and the trained-checkpoint scripts, which launch no
+   kernel of the port's own (K1 and K2 0). (a) The node's timer work
+   (``ros2/visualizer_node.py:frame_payload``) over the ``NODE_FRAMES``
+   frames of ``configs/vo.yaml``'s synthetic test split at 480x640, B=1,
+   in full fp32 as the node runs it (the phase restores PyTorch's default
+   TF32 flags, which the node's ``frame_payload`` turns off itself), with
+   phase 9's networks loaded from state_dict files through the
+   node's ``depth_weights``/``pose_weights`` route: the world poses and the
+   published clouds against the same on the CPU within ``NODE_POSE_ATOL``
+   and ``NODE_CLOUD_RTOL``, and ms per frame. (b) ``prior_pareto`` (seed
+   100, 20 frames, the grid {1e3} x {0.11}) and ``record_parity --stages
+   data slam`` on one 20-frame scene, both on phase 9's checkpoint, which
+   is then deleted: finite metrics under the JAX scripts' keys.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
@@ -452,6 +465,16 @@ ORB_FRAMES, ORB_REPS = 4, 20
 PREDICT_ATOL = 1e-6
 PREDICT_LENGTH = 40
 PREDICT_PASSES = 4
+# Phase 16a: the node's frames, the card against the CPU in full fp32 (the
+# node turns TF32 off itself): the networks' sums differ only in their order. The world pose after
+# NODE_FRAMES products within NODE_POSE_ATOL; the published cloud (metres,
+# up to max_depth) within NODE_CLOUD_RTOL of its largest coordinate.
+# Phase 15b's synthetic split of PREDICT_LENGTH gives NODE_FRAMES frames.
+NODE_FRAMES = 5
+NODE_POSE_ATOL = 1e-5
+NODE_CLOUD_RTOL = 1e-4
+# Phase 16b: the cut protocols of the trained-checkpoint scripts.
+PARETO_FRAMES = PARITY_FRAMES = 20
 
 
 def check(ok: bool, what: str) -> None:
@@ -1459,7 +1482,9 @@ def phase_trainer(k1, kept, card):
     kept["vo_weights"] = {name: {k: v.detach().cpu() for k, v in model.state_dict().items()}
                           for name, model in (("depth", a.state.depth_model),
                                               ("pose", a.state.pose_model))}
-    shutil.rmtree(root, ignore_errors=True)
+    # Phase 16 reads (a)'s checkpoint, and then deletes the directory.
+    kept["phase9_ckpt"] = ckpt_dir
+    shutil.rmtree(root / "packed", ignore_errors=True)
     print(f"  phase {time.perf_counter() - start_phase:.1f} s")
     return launches
 
@@ -2897,6 +2922,145 @@ def phase_cli(k1, config, kept, card):
     return slam_launches, predict_launches
 
 
+def _phase16_node(config, kept, card):
+    """(a) The node's timer work over the synthetic test split, the card
+    against the CPU, under PyTorch's default TF32 flags, which a deployed
+    node keeps: ``frame_payload`` sets its own precision."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        _phase16_node_frames(config, kept, card)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _phase16_node_frames(config, kept, card):
+    from deep_visual_slam_torch.data.loader import VoDataLoader, device_prefetch
+    from deep_visual_slam_torch.ros2 import visualizer_node
+
+    root = ROOT / "build" / "phase16"
+    root.mkdir(parents=True, exist_ok=True)
+    weights = {}
+    for name in ("depth", "pose"):
+        weights[name] = str(root / f"{name}.pth")
+        torch.save(kept["vo_weights"][name], weights[name])
+    config = copy.deepcopy(config)
+    config["Dataset"]["redwood"]["mono"] = False
+    config["Dataset"]["synthetic"] = {"mono": True, "length": PREDICT_LENGTH}
+    t = config["Train"]
+    depth_model, pose_model, report = visualizer_node.load_networks(
+        config, weights["depth"], weights["pose"])
+    check(len(report) == 2, f"the node loaded both weight files: {report}")
+    batches = list(device_prefetch(VoDataLoader(config).test_loader))
+    check(len(batches) == NODE_FRAMES, f"node: {len(batches)} test frames")
+    visualizer_node.frame_payload(depth_model, pose_model, batches[0], np.eye(4), config)
+    world, card_frames, ms = np.eye(4), [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        frame = visualizer_node.frame_payload(depth_model, pose_model, batch, world, config)
+        ms.append((time.perf_counter() - start) * 1e3)  # ends in copies to the host
+        world = frame["world_T"]
+        card_frames.append(frame)
+    cpu_depth, cpu_pose, _ = visualizer_node.load_networks(
+        config, weights["depth"], weights["pose"], "cpu")
+    world, pose_err, cloud_err, quat_err = np.eye(4), 0.0, 0.0, 0.0
+    for batch, got in zip(batches, card_frames):
+        want = visualizer_node.frame_payload(cpu_depth, cpu_pose,
+                                             {k: v.cpu() for k, v in batch.items()}, world,
+                                             config)
+        world = want["world_T"]
+        check(np.isfinite(got["points"]).all() and got["points"].shape == want["points"].shape
+              and len(got["data"]) == got["points"].shape[0] * got["point_step"],
+              "node: a finite cloud and its PointCloud2 payload")
+        pose_err = max(pose_err, float(np.abs(got["world_T"] - want["world_T"]).max()))
+        cloud_err = max(cloud_err, float(np.abs(got["points"] - want["points"]).max()
+                                         / np.abs(want["points"]).max()))
+        quat_err = max(quat_err, float(np.abs(got["quaternion"] - want["quaternion"]).max()))
+    print(f"  (a) {card}: the ROS2 node's frame (visualizer_node.frame_payload: "
+          f"predict.infer, the world pose, the cloud at stride {visualizer_node.STRIDE}, its "
+          f"PointCloud2 payload and quaternion), configs/vo.yaml's synthetic test split at "
+          f"{t['img_h']}x{t['img_w']}, B=1, full fp32 (set by the node; "
+          f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32} around it), phase 9's "
+          f"networks through the node's depth_weights/pose_weights files: ms/frame "
+          f"(host clock) "
+          f"{', '.join(f'{v:.2f}' for v in ms)}, median {statistics.median(ms):.2f}; "
+          f"{card_frames[0]['points'].shape[0]} points a frame. Against the CPU over "
+          f"{len(batches)} frames: world poses within {pose_err:.2e} (tolerance "
+          f"{NODE_POSE_ATOL:.0e}), clouds within {cloud_err:.2e} of their extent "
+          f"({NODE_CLOUD_RTOL:.0e}), quaternions within {quat_err:.2e}")
+    check(pose_err <= NODE_POSE_ATOL and cloud_err <= NODE_CLOUD_RTOL
+          and quat_err <= NODE_POSE_ATOL, "the node's frames on the card equal the CPU's")
+
+
+def _phase16_records(kept, card):
+    """(b) prior_pareto and record_parity --stages data slam, cut, on
+    phase 9's checkpoint."""
+    from deep_visual_slam_torch import prior_pareto, record_parity
+
+    root = ROOT / "build" / "phase16"
+    ckpt = kept["phase9_ckpt"]
+    start = time.perf_counter()
+    record = prior_pareto.main([
+        "--vo_ckpt", ckpt, "--frames", str(PARETO_FRAMES), "--seeds", "100", "--weights",
+        "1000", "--deltas", "0.11", "--out_json", str(root / "pareto.json")])
+    pareto_s = time.perf_counter() - start
+    configs = record["per_config"]
+    check(list(configs) == ["no_ba", "w1000_d0.11"]
+          and record["provenance"]["device"] != "cpu"
+          and all(np.isfinite(v) for c in configs.values() for v in c["mean"].values()),
+          "prior_pareto: finite means of no_ba and the grid point, on the card")
+    cut = {"SCENES": record_parity.SCENES[:1], "N_FRAMES": PARITY_FRAMES, "NYU_TRAIN": 2,
+           "NYU_TEST": 2}
+    saved = {k: getattr(record_parity, k) for k in cut}
+    for k, v in cut.items():
+        setattr(record_parity, k, v)
+    try:
+        start = time.perf_counter()
+        results = record_parity.main(["--out", str(root / "parity"), "--stages", "data",
+                                      "slam", "--vo_ckpt", ckpt])
+        parity_s = time.perf_counter() - start
+    finally:
+        for k, v in saved.items():
+            setattr(record_parity, k, v)
+    slam = results["slam_fixture"]
+    scene = slam["per_scene"][cut["SCENES"][0]]
+    check(set(scene) == {"odometry", "windowed_ba"} and all(
+        set(m) == {"ate_rmse", "rpe_pos_mean", "rpe_rot_mean_deg", "keyframes"}
+        and all(np.isfinite(v) for v in m.values()) for m in scene.values()),
+        "record_parity: finite SLAM metrics under the JAX script's keys")
+    w = configs["w1000_d0.11"]["mean"]
+    print(f"  (b) {card}: prior_pareto on phase 9's checkpoint, seed 100, {PARETO_FRAMES} "
+          f"frames at 480x640, in {pareto_s:.1f} s: no_ba ATE "
+          f"{configs['no_ba']['mean']['ate_rmse']:.6f}, w1e3 d0.11 ATE {w['ate_rmse']:.6f} "
+          f"({w['ate_vs_no_ba_pct']:+.1f}%), RPE-pos {w['rpe_pos_vs_no_ba_pct']:+.1f}%; "
+          f"record_parity --stages data slam, scene {cut['SCENES'][0]} of {PARITY_FRAMES} "
+          f"frames, in {parity_s:.1f} s: "
+          + "; ".join(f"{k} ATE {m['ate_rmse']:.6f} RPE-pos {m['rpe_pos_mean']:.6f} "
+                      f"({m['keyframes']} keyframes)" for k, m in scene.items()))
+
+
+def phase_node_records(k1, config, kept, card):
+    from deep_visual_slam_torch.ops.correlation_cuda import windowed_correlation
+
+    print("phase 16: the ROS2 node's frame; prior_pareto and record_parity on phase 9's "
+          "checkpoint")
+    start_phase = time.perf_counter()
+    counts = []
+    for run in (lambda: _phase16_node(config, kept, card), lambda: _phase16_records(kept, card)):
+        k1.launches = k1.backward_launches = 0
+        windowed_correlation.launches = 0
+        run()
+        counts.append((k1.launches, k1.backward_launches, windowed_correlation.launches))
+    shutil.rmtree(ROOT / "build" / "phase9", ignore_errors=True)
+    shutil.rmtree(ROOT / "build" / "phase16", ignore_errors=True)
+    print(f"  K1 launches (forward, backward) and K2: node {counts[0]}, prior_pareto and "
+          f"record_parity {counts[1]} (neither path runs them); phase "
+          f"{time.perf_counter() - start_phase:.1f} s")
+    check(counts == [(0, 0, 0)] * 2, "the node and the scripts launch no K1 or K2")
+    return counts
+
+
 def main() -> int:
     if not (ROOT / "deep_visual_slam_torch" / "csrc" / "reprojection.cu").is_file():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -2930,24 +3094,29 @@ def main() -> int:
     orb_fwd, orb_bwd, orb_k2 = phase_orb(reprojection_loss, kept, card)
     (cli_fwd, cli_bwd, cli_k2), (pred_fwd, pred_bwd, pred_k2) = phase_cli(
         reprojection_loss, config, kept, card)
+    (node_fwd, node_bwd, node_k2), (rec_fwd, rec_bwd, rec_k2) = phase_node_records(
+        reprojection_loss, config, kept, card)
     # Each main path ran with the counts set to 0 just before it. DA-V2,
-    # the matcher, the ORB loop and the CLIs' loops launch none of the
-    # port's kernels.
+    # the matcher, the ORB loop, the CLIs' loops, the ROS2 node and the
+    # trained-checkpoint scripts launch none of the port's kernels.
     k1_row["launches_by_path"] = {
         "eval": eval_launches, "train": train_fwd, "stereo": stereo_fwd, "slam": slam_fwd,
         "global_ba": global_fwd, "trainer": trainer_fwd, "depth": depth_fwd,
         "raft": 0, "redwood": 0, "depth_anything": 0, "matcher": 0, "ddp": ddp_fwd,
-        "orb": orb_fwd, "slam_cli": cli_fwd, "predict": pred_fwd,
+        "orb": orb_fwd, "slam_cli": cli_fwd, "predict": pred_fwd, "ros2_node": node_fwd,
+        "records": rec_fwd,
     }
     bwd_row["launches_by_path"] = {
         "eval": 0, "train": train_bwd, "stereo": stereo_bwd, "slam": slam_bwd,
         "global_ba": global_bwd, "trainer": trainer_bwd, "depth": depth_bwd,
         "raft": 0, "redwood": 0, "depth_anything": 0, "matcher": 0, "ddp": ddp_bwd,
-        "orb": orb_bwd, "slam_cli": cli_bwd, "predict": pred_bwd,
+        "orb": orb_bwd, "slam_cli": cli_bwd, "predict": pred_bwd, "ros2_node": node_bwd,
+        "records": rec_bwd,
     }
     k2_row["launches_by_path"] = {"raft": raft_k2, "redwood": redwood_k2,
                                   "depth_anything": 0, "matcher": 0, "ddp": 0, "orb": orb_k2,
-                                  "slam_cli": cli_k2, "predict": pred_k2}
+                                  "slam_cli": cli_k2, "predict": pred_k2, "ros2_node": node_k2,
+                                  "records": rec_k2}
     rows = [k1_row, bwd_row, k2_row]
     for row in rows:
         row["launches"] = sum(row["launches_by_path"].values())

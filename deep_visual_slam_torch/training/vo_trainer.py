@@ -29,7 +29,7 @@ trainer, which prints and goes on, a failure to draw them raises.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -254,9 +254,20 @@ class Trainer:
             "generator": self.generator.get_state().tolist(),
         })
 
-    def train(self) -> None:
+    def train(self, on_phase: Optional[Callable[[int, str, Dict[str, float]], None]] = None
+              ) -> None:
+        """The epochs from ``start_epoch``: each trains, validates every
+        ``valid_freq``-th epoch and saves every ``save_freq``-th.
+        ``on_phase(epoch, phase, metrics)``, where given, is called at the
+        end of each of these parts (``phase`` ``"train"``, ``"valid"`` or
+        ``"save"``) with its metrics (empty for a save)."""
+        def ended(epoch, phase, metrics):
+            if on_phase is not None:
+                on_phase(epoch, phase, metrics)
+
         for epoch in range(self.start_epoch, self.epochs + 1):
             train_metrics = self.train_epoch(epoch)
+            ended(epoch, "train", train_metrics)
             msg = ", ".join(
                 f"{k}={v:.4f}" for k, v in sorted(train_metrics.items())
                 if k in ("loss", "grad_norm")
@@ -265,10 +276,12 @@ class Trainer:
                         f"({self.timer.throughput(self.batch_size):.1f} frames/s)")
             if epoch % self.valid_freq == 0:
                 val = self.validate(epoch)
+                ended(epoch, "valid", val)
                 if "valid/loss" in val:
                     self._print(f"  valid loss={val['valid/loss']:.4f}")
             if epoch % self.save_freq == 0:
                 self.save_checkpoint(epoch)
+                ended(epoch, "save", {})
         self.writer.close()
         self.ckpt.close()
 

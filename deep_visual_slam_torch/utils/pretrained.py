@@ -5,10 +5,10 @@ The port's parameter names are the reference torch ``state_dict``'s, so
 this is ``load_state_dict`` of files the user supplies; nothing is
 downloaded. Config keys (under ``Train``, null by default)::
 
-    pretrained_encoder: weights/resnet18_imagenet.pth   # torchvision ResNet
+    pretrained_encoder: weights/resnet18_imagenet.pth   # torchvision ResNet, or .npz
     pretrained_weights:
-      depth: weights/vo/depth_net_epoch_30.pth          # full DepthNet
-      pose:  weights/vo/pose_net_epoch_30.pth           # full PoseNet
+      depth: weights/vo/depth_net_epoch_30.pth          # full DepthNet, or .npz
+      pose:  weights/vo/pose_net_epoch_30.pth           # full PoseNet, or .npz
 
 The encoder goes in first (under ``encoder.encoder.`` of each network; the
 pose encoder's 3-channel conv1 is tiled over its two images and divided by
@@ -17,8 +17,15 @@ encoder and ``pretrained_weights.depth`` only. A file may wrap its weights in a
 ``"state_dict"`` entry and carry torch.compile's ``_orig_mod.`` prefixes.
 Every graft must match the model's keys and shapes exactly. A reference
 RAFT checkpoint (FlowPoseNet's frozen flow network) loads through
-:func:`load_raft_state_dict`, a Depth-Anything-V2 one (or the JAX package's
-``.npz`` cache of it) through :func:`load_depth_anything_state_dict`.
+:func:`load_raft_state_dict`, a Depth-Anything-V2 one through
+:func:`load_depth_anything_state_dict`.
+
+Every one of these paths also takes an ``.npz`` of JAX variables (the JAX
+package's ``save_variables_npz``, flattened ``params/...`` and
+``batch_stats/...`` keys), converted by ``utils/weights.py``: a DepthNet,
+PoseNet or RAFT tree, or a bare ResNet encoder's. An encoder ``.npz`` goes
+in as it is, as the JAX package loads it: no conv1 tiling, so a
+3-channel encoder file fails on the pose encoder's 6-channel conv1.
 """
 
 from __future__ import annotations
@@ -38,6 +45,10 @@ def strip_compile_prefix(state_dict: Mapping) -> Dict:
         (k[len("_orig_mod."):] if k.startswith("_orig_mod.") else k): v
         for k, v in state_dict.items()
     }
+
+
+def _is_npz(path: str) -> bool:
+    return str(path).endswith(".npz")
 
 
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
@@ -92,6 +103,50 @@ def _encoder_weights(sd: Mapping[str, torch.Tensor], num_input_images: int) -> D
     return out
 
 
+def _encoder_num_layers(params: Mapping) -> int:
+    """The depth of a JAX ``ResNetEncoder`` tree, from its block names and
+    count (18 and 34 have basic blocks, 50 and up bottlenecks)."""
+    from deep_visual_slam_torch.models.resnet import STAGE_SIZES
+
+    basic = sum(k.startswith("BasicBlock_") for k in params)
+    blocks = basic or sum(k.startswith("BottleneckBlock_") for k in params)
+    for n, stages in STAGE_SIZES.items():
+        if sum(stages) == blocks and (n <= 34) == bool(basic):
+            return n
+    raise ValueError(f"not a ResNet encoder tree ({blocks} blocks)")
+
+
+def _encoder_weights_for(path: str, num_input_images: int) -> Dict[str, torch.Tensor]:
+    """The encoder file at ``path`` as weights relative to ``encoder.encoder.``:
+    a torchvision ``.pth`` through :func:`_encoder_weights`, a JAX encoder
+    ``.npz`` converted as it is."""
+    if not _is_npz(path):
+        return _encoder_weights(load_state_dict_file(path), num_input_images)
+    from deep_visual_slam_torch.utils.weights import _encoder
+
+    variables = load_variables_npz(path)
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    out: Dict[str, torch.Tensor] = {}
+    _encoder(out, params, stats, _encoder_num_layers(params))
+    return {k[len(_ENCODER):]: v for k, v in out.items()}
+
+
+def _network_weights(path: str, name: str) -> Dict[str, torch.Tensor]:
+    """A full ``name`` (``"depth"`` or ``"pose"``) network's file as the
+    port's ``state_dict``: torch files as they are, JAX ``.npz`` trees
+    through ``depthnet_from_jax``/``posenet_from_jax``."""
+    if not _is_npz(path):
+        return load_state_dict_file(path)
+    from deep_visual_slam_torch.utils.weights import depthnet_from_jax, posenet_from_jax
+
+    variables = load_variables_npz(path)
+    convert = depthnet_from_jax if name == "depth" else posenet_from_jax
+    try:
+        return convert(variables, _encoder_num_layers(variables["params"]["encoder"]))
+    except KeyError as e:
+        raise ValueError(f"{path} is not a JAX {name} network's variables (no {e})") from None
+
+
 def apply_vo_pretrained(depth_model: nn.Module, pose_model: nn.Module, config: Dict) -> List[str]:
     """Apply ``Train.pretrained_encoder`` and ``Train.pretrained_weights`` to
     freshly made VO networks, in place; returns what was loaded."""
@@ -99,14 +154,13 @@ def apply_vo_pretrained(depth_model: nn.Module, pose_model: nn.Module, config: D
     report: List[str] = []
     enc_path = t.get("pretrained_encoder")
     if enc_path:
-        sd = load_state_dict_file(enc_path)
-        _graft(depth_model, _encoder_weights(sd, 1), _ENCODER, enc_path)
-        _graft(pose_model, _encoder_weights(sd, 2), _ENCODER, enc_path)
+        _graft(depth_model, _encoder_weights_for(enc_path, 1), _ENCODER, enc_path)
+        _graft(pose_model, _encoder_weights_for(enc_path, 2), _ENCODER, enc_path)
         report.append(f"pretrained encoder (1x + 2x input): {enc_path}")
     pw = t.get("pretrained_weights") or {}
     for name, model in (("depth", depth_model), ("pose", pose_model)):
         if pw.get(name):
-            _graft(model, load_state_dict_file(pw[name]), "", pw[name])
+            _graft(model, _network_weights(pw[name], name), "", pw[name])
             report.append(f"pretrained {name} net: {pw[name]}")
     return report
 
@@ -117,12 +171,11 @@ def apply_depth_pretrained(depth_model: nn.Module, config: Dict) -> List[str]:
     report: List[str] = []
     enc_path = t.get("pretrained_encoder")
     if enc_path:
-        sd = load_state_dict_file(enc_path)
-        _graft(depth_model, _encoder_weights(sd, 1), _ENCODER, enc_path)
+        _graft(depth_model, _encoder_weights_for(enc_path, 1), _ENCODER, enc_path)
         report.append(f"pretrained encoder: {enc_path}")
     pw = t.get("pretrained_weights") or {}
     if pw.get("depth"):
-        _graft(depth_model, load_state_dict_file(pw["depth"]), "", pw["depth"])
+        _graft(depth_model, _network_weights(pw["depth"], "depth"), "", pw["depth"])
         report.append(f"pretrained depth net: {pw['depth']}")
     return report
 
@@ -133,11 +186,17 @@ def load_raft_state_dict(path: str, small: bool = True) -> Dict[str, torch.Tenso
     compile prefixes stripped, and checked by a strict load into
     ``RAFT(small=small)``, which raises on a missing, extra or misshapen
     key. The names are the reference's, so nothing is converted; load the
-    result into a RAFT, or into ``FlowPoseNet.flow_net``."""
+    result into a RAFT, or into ``FlowPoseNet.flow_net``. An ``.npz`` of
+    JAX RAFT variables goes through ``raft_from_jax``."""
     from deep_visual_slam_torch.models.raft import RAFT
 
-    sd = {(k[len("module."):] if k.startswith("module.") else k): v
-          for k, v in load_state_dict_file(path).items()}
+    if _is_npz(path):
+        from deep_visual_slam_torch.utils.weights import raft_from_jax
+
+        sd = raft_from_jax(load_variables_npz(path), small)
+    else:
+        sd = {(k[len("module."):] if k.startswith("module.") else k): v
+              for k, v in load_state_dict_file(path).items()}
     RAFT(small=small).load_state_dict(sd)
     return sd
 
@@ -184,7 +243,7 @@ def load_depth_anything_state_dict(
     from deep_visual_slam_torch.models.depth_anything import DepthAnythingV2
     from deep_visual_slam_torch.utils.weights import depth_anything_from_jax
 
-    if path.endswith(".npz"):
+    if _is_npz(path):
         sd = depth_anything_from_jax(load_variables_npz(path))
     else:
         sd = {}
