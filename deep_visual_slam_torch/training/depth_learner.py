@@ -5,7 +5,9 @@ Per scale, the predicted depth is upsampled to the label's resolution
 (bilinear, half-pixel centres), then SILog (variance focus 0.85) over the
 valid pixels and the smoothness of the mean-normalized depth are weighted
 by the scale's alpha (1, 0.5, 0.25, 0.125); the total is ``silog_weight *
-silog + smooth_weight * smooth``. All of it in fp32.
+silog + smooth_weight * smooth``. All of it in fp32. While tracing is on
+(``utils/logging.py``), :func:`forward_step` records the spans
+``net.depth.fwd`` (DepthNet's forward) and ``loss.depth`` (the rest).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from deep_visual_slam_torch.ops.depth import disp_to_depth, silog_loss
 from deep_visual_slam_torch.ops.photometric import smooth_loss
 from deep_visual_slam_torch.ops.warp import resize_bilinear
+from deep_visual_slam_torch.utils.logging import span
 
 
 @dataclass(frozen=True)
@@ -91,10 +94,12 @@ def forward_step(
     if valid.dim() == 3:
         valid = valid[..., None]
 
-    outputs = depth_net(rgb)
-    pred_depths = [
-        disp_to_depth(outputs[("disp", s)].float(), cfg.min_depth, cfg.max_depth)[1]
-        for s in range(cfg.num_scales)
-    ]
-    total, silog, smooth = multi_scale_loss(pred_depths, gt, rgb, valid, cfg, reduce)
+    with span("net.depth.fwd"):
+        outputs = depth_net(rgb)
+    with span("loss.depth"):
+        pred_depths = [
+            disp_to_depth(outputs[("disp", s)].float(), cfg.min_depth, cfg.max_depth)[1]
+            for s in range(cfg.num_scales)
+        ]
+        total, silog, smooth = multi_scale_loss(pred_depths, gt, rgb, valid, cfg, reduce)
     return total, {"loss": total, "silog": silog, "smooth": smooth}, pred_depths

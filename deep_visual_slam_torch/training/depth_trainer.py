@@ -109,23 +109,27 @@ class Trainer:
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         """One epoch; returns its mean of each loss. The sums stay on the
-        device; the losses are read back at the first step and every tenth."""
+        device; the losses are read back at the first step and every tenth,
+        and the step timer marks each readback and the epoch's end."""
         self.state.depth_model.train()
+        self.timer.restart()
         loader = self.data_loader.train_loader
         loader.set_epoch(epoch)
         sums: Dict[str, torch.Tensor] = {}
         count = 0
         for batch in device_prefetch(loader, self.device):
             losses = self.train_step(self.state, batch)
-            self.timer.tick()
             count += 1
             for k, v in losses.items():
                 sums[k] = sums.get(k, 0.0) + v
             if count % 10 == 0 or count == 1:
                 self.writer.scalars({k: v.item() for k, v in losses.items()},
                                     self.state.step, prefix="train/")
+                self.timer.mark(count)
+        means = {k: v.item() / count for k, v in sums.items()}
+        self.timer.mark(count)
         self.writer.flush()
-        return {k: v.item() / count for k, v in sums.items()}
+        return means
 
     def validate(self, epoch: int) -> Dict[str, float]:
         """The eval step over the valid loader: the mean loss and the depth

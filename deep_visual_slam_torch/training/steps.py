@@ -18,6 +18,13 @@ the random draws of the jitter and the auto-mask noise are made for the
 global batch, from generators in the same state on every rank, and each
 rank takes its rows; SILog sums its terms over the ranks before the square
 root; the returned losses are the ranks' means.
+
+While tracing is on (``utils/logging.py``), the train steps record the
+spans ``step`` (the whole call), ``step.input`` (the batch to the device,
+the jitter, the noise), the networks' and the losses' spans of
+``vo_learner`` and ``depth_learner``, ``loss.bwd`` and ``net.bwd`` (the
+backward pass, split where the first gradient reaches a network's output)
+and ``optimizer`` (the update).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from deep_visual_slam_torch.parallel.mesh import Mesh
 from deep_visual_slam_torch.training import depth_learner, vo_learner
 from deep_visual_slam_torch.training.augment import batch_snippet_jitter, draw_jitter_factors
 from deep_visual_slam_torch.training.state import TrainState
+from deep_visual_slam_torch.utils import logging as tracing
 
 # Image planes that may arrive as uint8 (snippet triplet + stereo pair).
 _IMAGE_KEYS = ("source_left", "target_image", "source_right", "source_image")
@@ -82,11 +90,21 @@ class _Network(torch.nn.Module):
 
     def forward(self, x: torch.Tensor) -> Any:
         if not self.remat:
-            return self._run(x)
-        return checkpoint(
-            self._run, x, use_reentrant=False,
-            context_fn=lambda: (contextlib.nullcontext(), frozen_running_stats(self.model)),
-        )
+            out = self._run(x)
+        else:
+            out = checkpoint(
+                self._run, x, use_reentrant=False,
+                context_fn=lambda: (contextlib.nullcontext(), frozen_running_stats(self.model)),
+            )
+        tracing.watch_gradients(out.values() if isinstance(out, dict) else out)
+        return out
+
+
+def _backward(loss: torch.Tensor) -> None:
+    """``loss.backward()`` in the spans ``loss.bwd`` and ``net.bwd``, split
+    where the first gradient reaches a network's output."""
+    with tracing.split_span("loss.bwd", "net.bwd"):
+        loss.backward()
 
 
 def _network(
@@ -175,33 +193,37 @@ def make_vo_train_step(
         generator: torch.Generator | None = None,
         noise: Sequence[torch.Tensor] | None = None,
     ) -> Dict[str, torch.Tensor]:
-        batch = _to_device(batch, device)
-        B = batch["target_image"].shape[0]
-        if device_augment:
-            factors = None
-            if mesh is not None:
-                rows = mesh.rows(B * mesh.world)
-                factors = [f[rows] for f in draw_jitter_factors(B * mesh.world, generator, device)]
-            batch = batch_snippet_jitter(batch, generator, factors)
-        if noise is None:
-            noise = _global_noise(mesh, cfg, (B, *batch["target_image"].shape[1:3], 2),
-                                  generator, device)
-        if B % accum_steps:
-            raise ValueError(f"batch {B} does not split into {accum_steps} microbatches")
-        b = B // accum_steps
-        state.optimizer.zero_grad(set_to_none=True)
-        losses: Dict[str, torch.Tensor] = {}
-        for i in range(accum_steps):
-            rows = slice(i * b, (i + 1) * b)
-            _, micro = vo_learner.process_batch(
-                depth_net, pose_net, {k: v[rows] for k, v in batch.items()}, cfg,
-                generator, None if noise is None else [n[rows] for n in noise],
-            )
-            (micro["loss"] / accum_steps).backward()
-            for k, v in micro.items():
-                losses[k] = losses.get(k, 0.0) + v.detach() / accum_steps
-        losses["grad_norm"] = state.apply_gradients()
-        return _rank_mean(losses, mesh)
+        with tracing.span("step"):
+            with tracing.span("step.input"):
+                batch = _to_device(batch, device)
+                B = batch["target_image"].shape[0]
+                if device_augment:
+                    factors = None
+                    if mesh is not None:
+                        rows = mesh.rows(B * mesh.world)
+                        factors = [f[rows] for f in
+                                   draw_jitter_factors(B * mesh.world, generator, device)]
+                    batch = batch_snippet_jitter(batch, generator, factors)
+                if noise is None:
+                    noise = _global_noise(mesh, cfg, (B, *batch["target_image"].shape[1:3], 2),
+                                          generator, device)
+            if B % accum_steps:
+                raise ValueError(f"batch {B} does not split into {accum_steps} microbatches")
+            b = B // accum_steps
+            state.optimizer.zero_grad(set_to_none=True)
+            losses: Dict[str, torch.Tensor] = {}
+            for i in range(accum_steps):
+                rows = slice(i * b, (i + 1) * b)
+                _, micro = vo_learner.process_batch(
+                    depth_net, pose_net, {k: v[rows] for k, v in batch.items()}, cfg,
+                    generator, None if noise is None else [n[rows] for n in noise],
+                )
+                _backward(micro["loss"] / accum_steps)
+                for k, v in micro.items():
+                    losses[k] = losses.get(k, 0.0) + v.detach() / accum_steps
+            with tracing.span("optimizer"):
+                losses["grad_norm"] = state.apply_gradients()
+            return _rank_mean(losses, mesh)
 
     return train_step
 
@@ -333,13 +355,15 @@ def make_depth_train_step(
     reduce = psum if mesh is not None else None
 
     def train_step(state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        state.optimizer.zero_grad(set_to_none=True)
-        total, losses, _ = depth_learner.forward_step(
-            depth_net, _to_device(batch, device), cfg, reduce
-        )
-        total.backward()
-        state.apply_gradients()
-        return _rank_mean(losses, mesh)
+        with tracing.span("step"):
+            with tracing.span("step.input"):
+                batch = _to_device(batch, device)
+            state.optimizer.zero_grad(set_to_none=True)
+            total, losses, _ = depth_learner.forward_step(depth_net, batch, cfg, reduce)
+            _backward(total)
+            with tracing.span("optimizer"):
+                state.apply_gradients()
+            return _rank_mean(losses, mesh)
 
     return train_step
 

@@ -5,6 +5,11 @@ Plain functions over NHWC batches. ``depth_net(image[B, H, W, 3])`` returns
 ``{("disp", s): [B, H/2^s, W/2^s, 1]}`` and ``pose_net(pair[B, H, W, 6])``
 returns ``(axisangle, translation)`` of shape [B, 1, 1, 3]; the steps
 (``training/steps.py``) adapt the NCHW modules to these callables.
+
+While tracing is on (``utils/logging.py``), :func:`process_batch` records
+the spans ``net.depth.fwd`` (DepthNet's forward), ``net.pose.fwd``
+(:func:`predict_poses`), ``loss.warp`` (:func:`generate_images_pred`) and
+``loss.photometric`` (:func:`compute_losses`).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from deep_visual_slam_torch.ops import (
     transformation_from_parameters,
 )
 from deep_visual_slam_torch.ops.photometric import normalized_smooth_loss
+from deep_visual_slam_torch.utils.logging import span
 
 
 @dataclass(frozen=True)
@@ -258,8 +264,12 @@ def process_batch(
     noise: Sequence[torch.Tensor] | None = None,
 ) -> Tuple[Dict[Any, torch.Tensor], Dict[str, torch.Tensor]]:
     """Full VO forward + loss (reference ``vo/learner_new.py:76-105``)."""
-    outputs = dict(depth_net(batch["target_image"]))
-    outputs.update(predict_poses(pose_net, batch))
-    generate_images_pred(batch, outputs, cfg)
-    losses = compute_losses(batch, outputs, cfg, generator, noise)
+    with span("net.depth.fwd"):
+        outputs = dict(depth_net(batch["target_image"]))
+    with span("net.pose.fwd"):
+        outputs.update(predict_poses(pose_net, batch))
+    with span("loss.warp"):
+        generate_images_pred(batch, outputs, cfg)
+    with span("loss.photometric"):
+        losses = compute_losses(batch, outputs, cfg, generator, noise)
     return outputs, losses

@@ -45,6 +45,7 @@ from deep_visual_slam_torch.training.steps import (
     make_vo_train_step,
 )
 from deep_visual_slam_torch.training.vo_learner import VOLossConfig
+from deep_visual_slam_torch.utils import logging as tracing
 from deep_visual_slam_torch.utils.checkpoint import CheckpointManager
 from deep_visual_slam_torch.utils.config import experiment_name
 from deep_visual_slam_torch.utils.logging import MetricsWriter, StepTimer
@@ -154,8 +155,10 @@ class Trainer:
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         """One epoch (or its rest, after a mid-epoch resume); returns the
         epoch's mean of each loss. The sums stay on the device; losses are
-        read back at the first step and every tenth."""
+        read back at the first step and every tenth, and the step timer
+        marks each readback and the epoch's end."""
         self._mode(True)
+        self.timer.restart()
         loader = self.data_loader.train_loader
         loader.set_epoch(epoch)
         sums: Dict[str, torch.Tensor] = {}
@@ -189,7 +192,6 @@ class Trainer:
             if profiler is not None and count == 6:
                 _stop_profiler(profiler, self.device, self.profile_dir)
                 profiler = profile = None
-            self.timer.tick()
             count += 1
             if self.save_every_steps and count % self.save_every_steps == 0:
                 self.save_checkpoint(epoch, step_in_epoch=count)
@@ -200,12 +202,15 @@ class Trainer:
                 step = self.state.step
                 self.writer.scalars({k: v.item() for k, v in losses.items()}, step,
                                     prefix="train/")
+                self.timer.mark(count)
                 self.writer.scalar("train/frames_per_sec",
                                    self.timer.throughput(self.batch_size), step)
         if profiler is not None:
             _stop_profiler(profiler, self.device, self.profile_dir)
+        means = {k: v.item() / counts[k] for k, v in sums.items()}
+        self.timer.mark(count)
         self.writer.flush()
-        return {k: v.item() / counts[k] for k, v in sums.items()}
+        return means
 
     def validate(self, epoch: int) -> Dict[str, float]:
         """The eval step over the valid loader: mean losses and the
@@ -292,6 +297,8 @@ def _host(x: torch.Tensor):
 
 
 def _start_profiler(device: torch.device):
+    """A running ``torch.profiler`` over the host and the device; the
+    program's spans record while it runs, so its trace shows them by name."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -301,8 +308,11 @@ def _start_profiler(device: torch.device):
 
 
 def _stop_profiler(profiler, device: torch.device, profile_dir: str) -> None:
+    """The profiler stopped, the spans' buffer emptied (the trace holds
+    the spans) and the trace written to ``<profile_dir>/train_steps.json``."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     profiler.stop()
+    tracing.drain()
     os.makedirs(profile_dir, exist_ok=True)
     profiler.export_chrome_trace(os.path.join(profile_dir, "train_steps.json"))
