@@ -17,6 +17,17 @@ the run with a non-zero exit code and no result line:
    median times and the memory bound.
 3. K1's backward kernel against the plain version's autograd at the same
    five inputs: dL/dpred and dL/dtarget, median times and the bound.
+3b. Kernel K3 (the decoder's padded conv inputs, forward and backward)
+   against its plain version at the 11 launches of a DepthNet forward, at
+   the depth cell's B=64 x 480x640 in bf16 and at B=4 x 96x128 (where the
+   encoder's last feature is 3 rows high) in bf16 and fp32: P's copied
+   elements equal, the ELU's within an ulp; dy and dskip, in the layouts of
+   y and skip, within the tolerance of ``tests/test_torch_kernels.py`` of
+   the plain version's gradients in float64, beside the plain version's own
+   error in the working type. Then at B=64: ms of the 11 forward and the 11
+   backward launches, each launch's own, the plain version's, the chain
+   the decoder ran before (``F.elu``, ``F.interpolate``, ``torch.cat`` and
+   14 ``F.pad``), and the memory bound.
 4. Serving: ``Networks`` at 480x640, B=1, bf16 on 20 synthetic frames
    through ``depth``, ``pose`` and ``step``.
 5. Evaluation: the eval step, first at a small size in fp32 against the
@@ -29,7 +40,8 @@ the run with a non-zero exit code and no result line:
    ``make_stereo_train_step`` step (5 and 4), which must leave PoseNet as
    it was.
 7. SLAM serving: ``MonoVO`` (KLT frontend, windowed photometric BA at
-   levels (2, 1)), which launches no kernel of the port's own. (a) At
+   levels (2, 1)), which launches no kernel of the port's own but K3, in
+   DepthNet's decoder. (a) At
    96x128 in fp32 on an oracle-initialized sequence, the card against the
    CPU. (b) At 480x640, 60 frames of seeds 100 and 101 from an oracle
    initialization, without and with BA, against the JAX package's numbers
@@ -42,7 +54,7 @@ the run with a non-zero exit code and no result line:
 8. Global BA over the whole keyframe history (``Map.global_bundle_adjustment``,
    levels (2, 1), 21 iterations) and the BA ablation
    (``deep_visual_slam_torch.ba_ablation``), which launch no kernel of the
-   port's own. (a) On phase 7a's runs, whose keyframes outgrew the window of
+   port's own but K3. (a) On phase 7a's runs, whose keyframes outgrew the window of
    4, the card against the CPU: the same keyframes, their poses after global
    BA within ``GLOBAL_SMALL_ATOL``. (b) On phase 7b's frames, seeds 100 and
    101, ``run_once``/``evaluate`` of the ``windowed_plus_global_ba``
@@ -72,7 +84,7 @@ the run with a non-zero exit code and no result line:
    the card, timed the same way.
 10. Supervised depth at the full width of ``configs/depth.yaml`` (ResNet-18
    DepthNet, B=64, 480x640, bf16, AdamW), which launches no kernel of the
-   port's own. (a) One ``make_depth_train_step`` step at 2x64x96 in fp32,
+   port's own but K3. (a) One ``make_depth_train_step`` step at 2x64x96 in fp32,
    the card against the CPU (losses, the gradient of every parameter, the
    updated weights, phase 6's tolerances). (b) The depth ``Trainer``, cut
    to one epoch, on an in-memory ``DepthSampleDataset`` (192 train and 128
@@ -115,7 +127,7 @@ the run with a non-zero exit code and no result line:
    scene and pairs/s; then one 96x128 scene on the card against the CPU,
    and a fault (the weights rounded to bf16) that the comparison must see.
 13. Depth-Anything-V2, the device ORB matcher and DDP, which launch no
-   kernel of the port's own but through DDP's train step. (a) DA-V2 at a
+   kernel of the port's own but through DDP's train step (K1, K3). (a) DA-V2 at a
    narrow width and at ``vits`` on a 56x84 input in fp32, the card against
    the CPU. (b) ``vits`` and ``vitl`` at B=1 in bf16 at 518x518 (the native
    37x37 patch grid) and 490x644 (480x640 padded): ms per frame (20
@@ -134,7 +146,7 @@ the run with a non-zero exit code and no result line:
    weights, batch and generator: losses, updated weights and BatchNorm
    statistics, K1's launches under DDP, and ms per step of each, in turns.
 14. ORB SLAM, ``MonoVO(frontend="orb")``, which launches no kernel of the
-   port's own (K1 and K2 0). (a) ``extract_features`` (ORB in PyTorch,
+   port's own but K3 (K1 and K2 0). (a) ``extract_features`` (ORB in PyTorch,
    3000 features, 8 levels) on 4 of phase 7b's frames at 480x640 on the
    card and on the CPU: equal keypoints, angles, responses and
    descriptors; keypoints per level; ms per frame (median of 20, CUDA
@@ -148,8 +160,8 @@ the run with a non-zero exit code and no result line:
    ms. (d) The loop at 96x128 in fp32, the card against the CPU: the same
    keyframes, poses within ``SLAM_SMALL_ATOL``. (e) Global BA over (c)'s
    keyframes with BA: ms, and the keyframe ATE's move.
-15. The CLIs' loops, which launch no kernel of the port's own (K1 and K2
-   0), fed from memory: the card's machine has no matplotlib, so the
+15. The CLIs' loops, which launch no kernel of the port's own but K3 (K1
+   and K2 0), fed from memory: the card's machine has no matplotlib, so the
    figures stay on the host. (a) ``slam_cli.run`` over phase 7c's sweep
    (480x640 uint8, 40 frames, ``--num_kf 7 --max_points 256``, bf16 random
    networks), with KLT and ``--global_ba`` and with ORB, each against
@@ -165,7 +177,7 @@ the run with a non-zero exit code and no result line:
    collation and copy to the card are inside the clock), over
    ``PREDICT_PASSES`` passes, and over the batches already on the card.
 16. The ROS2 node and the trained-checkpoint scripts, which launch no
-   kernel of the port's own (K1 and K2 0). (a) The node's timer work
+   kernel of the port's own but K3 (K1 and K2 0). (a) The node's timer work
    (``ros2/visualizer_node.py:frame_payload``) over the ``NODE_FRAMES``
    frames of ``configs/vo.yaml``'s synthetic test split at 480x640, B=1,
    in full fp32 as the node runs it (the phase restores PyTorch's default
@@ -237,6 +249,15 @@ K1_BWD_RTOL = 2e-5
 # final combination with the L1 term (6); per pixel the scaling of g (5).
 K1_BWD_OPS_PER_CHANNEL = 9 * 8 + 33 + 30 + 9 * 6 + 6
 K1_BWD_OPS_PER_PIXEL = 5
+# K3 against its plain version, as tests/test_torch_kernels.py holds it.
+# The forward: copied elements equal, the ELU's (expm1 in fp32, rounded
+# once) within an ulp of values in [1, 2) of the working type. The
+# gradients against the plain version's in float64: the final rounding
+# (K3_ROUND of the value), the ELU's derivative read back from P rounded to
+# the working type (an ulp, K3_ULP, of the gathered sum) and fp32 sums of up
+# to nine terms (1e-6 of the largest sum).
+K3_ULP = {torch.bfloat16: 2.0**-7, torch.float32: 2.0**-23}
+K3_ROUND = {torch.bfloat16: 2.0**-8, torch.float32: 2.0**-22}
 # The train step on the card against the CPU at 2x64x96 fp32: losses rtol
 # 1e-4 and the gradient norm 1e-3 (fp32 sums in other orders). The
 # gradient within 1e-2 of its 2-norm, and each parameter's within 1e-1 of
@@ -664,6 +685,211 @@ def phase_k1_backward(rates):
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
     }
+
+
+def _k3_forms(B, H, W, dtype):
+    """The 11 launches of a DepthNet forward at B x H x W in launch order:
+    (y, skip, elu, up, consumers), y and skip drawn as the decoder gets them
+    (the convs' outputs NCHW, the encoder's features channels-last);
+    ``consumers`` is the number of convs that read the padded input."""
+    from deep_visual_slam_torch.models.depthnet import DEC_CHANNELS, SCALES
+    from deep_visual_slam_torch.models.resnet import BASE_CH_ENC
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(shape, channels_last=False):
+        t = torch.randn(shape, device="cuda", generator=g).to(dtype)
+        return t.contiguous(memory_format=torch.channels_last) if channels_last else t
+
+    forms = [(randn((B, BASE_CH_ENC[4], H >> 5, W >> 5), True), None, False, False, 1)]
+    for i in range(4, -1, -1):
+        skip = randn((B, BASE_CH_ENC[i - 1], H >> i, W >> i), True) if i > 0 else None
+        forms.append((randn((B, DEC_CHANNELS[i], H >> (i + 1), W >> (i + 1))), skip,
+                      True, True, 1))
+        forms.append((randn((B, DEC_CHANNELS[i], H >> i, W >> i)), None, True, False,
+                      (i in SCALES) + (i > 0)))
+    return forms
+
+
+def _k3_chain(forms, y_leaves, skip_leaves):
+    """The decoder's old chain: the ELU, the upsample and the concatenation
+    each a pass of its own, and one ``F.pad`` per conv."""
+    import torch.nn.functional as F
+
+    from deep_visual_slam_torch.ops.decoder_pad_cuda import decoder_pad_plain
+
+    outs = []
+    for (_, _, elu, up, consumers), y, skip in zip(forms, y_leaves, skip_leaves):
+        x = F.elu(y) if elu else y
+        outs += [decoder_pad_plain(x, skip, elu=False, up=up) for _ in range(consumers)]
+    return outs
+
+
+def _k3_backward_ms(run, forms, reps):
+    """ms of the backward of ``run`` over ``forms``: gradients of every
+    input from fixed output gradients, the graph kept."""
+    y_leaves = [f[0].detach().requires_grad_() for f in forms]
+    skip_leaves = [None if f[1] is None else f[1].detach().requires_grad_() for f in forms]
+    outs = run(forms, y_leaves, skip_leaves)
+    douts = [torch.ones_like(o) for o in outs]
+    leaves = y_leaves + [s for s in skip_leaves if s is not None]
+    ms = cuda_ms(lambda: torch.autograd.grad(outs, leaves, douts, retain_graph=True), reps)
+    del outs, douts, leaves
+    return ms
+
+
+def _k3_check(forms, dtype):
+    """K3 against its plain version at ``forms`` (:func:`_k3_forms`), each
+    with a random output gradient: P exactly equal but for the ELU's
+    elements, which are within an ulp; the gradients, as the kernel writes
+    them in the inputs' layouts, within ``K3_ROUND`` of the plain version's
+    in float64 from the same inputs, plus an ulp of the gathered sum for
+    the derivative the kernel reads back from the rounded P. Returns the
+    largest absolute errors of the forward and of the kernel's and the
+    plain version's gradients (in the working type) against the float64
+    reference, and of the ELU forms' dy the largest error relative to the
+    reference's 2-norm, the kernel's and the plain version's."""
+    from deep_visual_slam_torch.ops.decoder_pad_cuda import decoder_pad, decoder_pad_plain
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    err = dict.fromkeys(("fwd", "bwd", "plain_bwd", "elu_rel", "plain_elu_rel"), 0.0)
+    for y, skip, elu, up, _ in forms:
+        inputs = [t for t in (y, skip) if t is not None]
+        runs = {"kernel": (decoder_pad, dtype, elu), "plain": (decoder_pad_plain, dtype, elu),
+                "ref": (decoder_pad_plain, torch.float64, elu),
+                "sums": (decoder_pad_plain, torch.float64, False)}
+        outs, grads, dout = {}, {}, None
+        for name, (fn, cast, with_elu) in runs.items():
+            leaves = [t.detach().to(cast, copy=True).requires_grad_() for t in inputs]
+            out = fn(*leaves, elu=with_elu, up=up)
+            if dout is None:
+                dout = torch.randn(out.shape, device="cuda", generator=g).to(dtype)
+            out.backward(dout.to(cast))
+            if name in ("kernel", "plain"):
+                outs[name] = out.detach()
+            grads[name] = [t.grad for t in leaves]
+            del out, leaves
+        out, ref = outs["kernel"], outs["plain"]
+        C1 = y.shape[1]
+        check(out.shape == ref.shape and out.is_contiguous(), "K3 shape and layout")
+        check(torch.equal(out[:, C1:], ref[:, C1:]), "K3 copies the skip exactly")
+        if elu:
+            a, b = out[:, :C1].float(), ref[:, :C1].float()
+            check(bool(((a - b).abs() <= K3_ULP[dtype] * b.abs()).all()),
+                  f"K3's ELU within an ulp at {tuple(y.shape)}")
+        else:
+            check(torch.equal(out, ref), f"K3 copies y exactly at {tuple(y.shape)}")
+        err["fwd"] = max(err["fwd"], (out.double() - ref.double()).abs().max().item())
+        for k, (leaf, got, plain, want, sums) in enumerate(
+                zip(inputs, grads["kernel"], grads["plain"], grads["ref"], grads["sums"])):
+            check(got.dtype == dtype and got.stride() == leaf.stride(),
+                  f"K3's gradient in the layout of its input at {tuple(leaf.shape)}")
+            deriv = K3_ULP[dtype] if (elu and k == 0) else 0.0
+            tol = K3_ROUND[dtype] * want.abs() + deriv * sums.abs() + 1e-6 * sums.abs().max()
+            diff = (got.double() - want).abs()
+            check(bool((diff <= tol).all()),
+                  f"K3's gradient within its tolerance at {tuple(leaf.shape)}, elu {elu}, "
+                  f"up {up}: {diff.max().item():.3e}")
+            err["bwd"] = max(err["bwd"], diff.max().item())
+            err["plain_bwd"] = max(err["plain_bwd"], (plain.double() - want).abs().max().item())
+            if elu and k == 0:
+                norm = torch.linalg.vector_norm(want).item()
+                for key, t in (("elu_rel", got), ("plain_elu_rel", plain)):
+                    rel = torch.linalg.vector_norm(t.double() - want).item() / norm
+                    err[key] = max(err[key], rel)
+        del outs, grads, out, ref, dout
+    return err
+
+
+def phase_k3(rates):
+    from deep_visual_slam_torch.ops.decoder_pad_cuda import (
+        decoder_pad,
+        decoder_pad_backward,
+        decoder_pad_plain,
+    )
+
+    B, H, W, dtype = 64, 480, 640, torch.bfloat16
+    print(f"phase 3b: K3 decoder_pad at a DepthNet forward's 11 launches, B={B} x "
+          f"{H}x{W} {str(dtype).split('.')[-1]}")
+    forms = _k3_forms(B, H, W, dtype)
+
+    def kernel(forms, ys, skips):
+        return [decoder_pad(y, s, elu=f[2], up=f[3]) for f, y, s in zip(forms, ys, skips)]
+
+    def plain(forms, ys, skips):
+        return [decoder_pad_plain(y, s, elu=f[2], up=f[3]) for f, y, s in zip(forms, ys, skips)]
+
+    err = _k3_check(forms, dtype)
+    small = {dt: _k3_check(_k3_forms(4, 96, 128, dt), dt)
+             for dt in (torch.bfloat16, torch.float32)}
+    for label, e in ((f"B={B} {H}x{W} bf16", err), ("B=4 96x128 bf16", small[torch.bfloat16]),
+                     ("B=4 96x128 fp32", small[torch.float32])):
+        print(f"  {label}: forward within {e['fwd']:.3e} of the plain version's; gradients "
+              f"within their tolerance, {e['bwd']:.3e} at most from the float64 reference "
+              f"(the plain version in the working type {e['plain_bwd']:.3e}); the ELU forms' "
+              f"dy within {e['elu_rel']:.3e} of the reference's 2-norm (plain "
+              f"{e['plain_elu_rel']:.3e})")
+    ys, skips = [f[0] for f in forms], [f[1] for f in forms]
+    es = torch.finfo(dtype).bits // 8
+    fwd_bytes = bwd_bytes = 0
+    for y, skip, elu, up, _ in forms:
+        inputs = y.numel() + (0 if skip is None else skip.numel())
+        out = (y.shape[0] * (y.shape[1] + (0 if skip is None else skip.shape[1]))
+               * ((y.shape[2] << up) + 2) * ((y.shape[3] << up) + 2))
+        fwd_bytes += (inputs + out) * es
+        bwd_bytes += (out + (y.numel() if elu else 0) + inputs) * es
+    with torch.no_grad():
+        ms = cuda_ms(lambda: kernel(forms, ys, skips), 20)
+        plain_ms = cuda_ms(lambda: plain(forms, ys, skips), 5)
+        library_ms = cuda_ms(lambda: _k3_chain(forms, ys, skips), 5)
+        per_launch = [cuda_ms(lambda f=f: decoder_pad(f[0], f[1], elu=f[2], up=f[3]), 20)
+                      for f in forms]
+    bwd_ms = _k3_backward_ms(kernel, forms, 10)
+    bwd_plain_ms = _k3_backward_ms(plain, forms, 3)
+    bwd_library_ms = _k3_backward_ms(_k3_chain, forms, 3)
+    bwd_per_launch = []  # the backward launch alone, without autograd's work
+    for y, skip, elu, up, _ in forms:
+        with torch.no_grad():
+            P = decoder_pad(y, skip, elu=elu, up=up)
+        dP, dy = torch.randn_like(P), torch.empty_like(y)
+        dskip = None if skip is None else torch.empty_like(skip)
+        bwd_per_launch.append(cuda_ms(
+            lambda: decoder_pad_backward(dP, P, dy, dskip, elu=elu, up=up), 20))
+        del P, dP, dy, dskip
+    bound_ms, bwd_bound_ms = fwd_bytes / rates[0] * 1e3, bwd_bytes / rates[0] * 1e3
+    for f, fms, bms in zip(forms, per_launch, bwd_per_launch):
+        print(f"  y {tuple(f[0].shape)} skip {None if f[1] is None else tuple(f[1].shape)} "
+              f"elu {f[2]} up {f[3]}: forward {fms:.4f} ms, backward {bms:.4f} ms")
+    print(
+        "  (each launch alone, 20 back to back)\n"
+        f"  forward, 11 launches: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, the old chain "
+        f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({fwd_bytes / 1e9:.3f} GB at "
+        f"{rates[0] / 1e12:.2f} TB/s)\n"
+        f"  backward, 11 launches: kernel {bwd_ms:.4f} ms (autograd's own work included), "
+        f"plain {bwd_plain_ms:.4f} ms, the old chain {bwd_library_ms:.4f} ms; bound "
+        f"{bwd_bound_ms:.4f} ms ({bwd_bytes / 1e9:.3f} GB); per call, 20 / 10 calls back to "
+        "back (5 / 3 for the plain version and the old chain), median of 5"
+    )
+    rows = []
+    for name, e, k_ms, p_ms, l_ms, b_ms in (
+        ("decoder_pad", err["fwd"], ms, plain_ms, library_ms, bound_ms),
+        ("decoder_pad_backward", err["bwd"], bwd_ms, bwd_plain_ms, bwd_library_ms,
+         bwd_bound_ms),
+    ):
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "deep_visual_slam_torch/csrc/decoder_pad.cu",
+            "replaces": None,  # XLA fuses jnp.pad into its neighbours on the TPU
+            "launches": None,
+            "max_abs_err": e,  # at the depth cell's shapes: vs plain / vs float64
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": "bytes",
+            "library_ms": l_ms,
+        })
+    return rows
 
 
 def phase_serving(k1):
@@ -1532,6 +1758,7 @@ def phase_depth(k1, card):
     from deep_visual_slam_torch.data.loader import collate, device_prefetch
     from deep_visual_slam_torch.data.nyu import DepthLoader
     from deep_visual_slam_torch.eval_depth_cli import evaluate, load_depth_weights
+    from deep_visual_slam_torch.ops.decoder_pad_cuda import decoder_pad
     from deep_visual_slam_torch.training import (
         DepthLossConfig,
         TrainState,
@@ -1595,16 +1822,24 @@ def phase_depth(k1, card):
     data_s = time.perf_counter() - t0
     a = Trainer(cfg_a, data_loader=loader)
     check(a.steps_per_epoch == 3, f"3 steps an epoch (got {a.steps_per_epoch})")
-    log, metrics, saves = [], {}, []
+    log, metrics, saves, k3_steps = [], {}, [], []
     train_step, eval_step, validate, save = a.train_step, a.eval_step, a.validate, a.ckpt.save
 
+    def k3_step(step, *args):
+        """``step(*args)`` and K3's launches (forward, backward) in it."""
+        counts = decoder_pad.launches, decoder_pad.backward_launches
+        out = step(*args)
+        k3_steps.append((decoder_pad.launches - counts[0],
+                         decoder_pad.backward_launches - counts[1]))
+        return out
+
     def recorded_train(state, batch):
-        losses = train_step(state, batch)
+        losses = k3_step(train_step, state, batch)
         log.append(("train", {k: v.detach().clone() for k, v in losses.items()}))
         return losses
 
     def recorded_eval(batch):
-        losses, depth = eval_step(batch)
+        losses, depth = k3_step(eval_step, batch)
         log.append(("eval", {k: v.clone() for k, v in losses.items()}))
         check(depth.shape == (B, H, W, 1), f"validation depth shape {tuple(depth.shape)}")
         return losses, depth
@@ -1628,6 +1863,8 @@ def phase_depth(k1, card):
     launches = (k1.launches, k1.backward_launches)
     peak_b = torch.cuda.max_memory_allocated()
     check(launches == (0, 0), f"the depth path launches no K1 (got {launches})")
+    check(k3_steps == [(11, 11)] * 3 + [(11, 0)] * 2,
+          f"K3 launches 11 + 11 a train step and 11 a validation step (got {k3_steps})")
     check([kind for kind, _ in log] == ["train"] * 3 + ["eval"] * 2,
           f"3 train and 2 validation steps: {[kind for kind, _ in log]}")
     for kind, losses in log:
@@ -1645,7 +1882,8 @@ def phase_depth(k1, card):
         + ", ".join(f"{k[6:]} {v:.5f}" for k, v in metrics.items())
         + f"; checkpoint {saves[0][0]:.1f} ms (synchronised), {saves[0][1] / 2**20:.1f} MiB; "
         f"device memory high-water {peak_b / 2**30:.2f} GiB; K1 launches {launches[0]} "
-        f"forward, {launches[1]} backward"
+        f"forward, {launches[1]} backward; K3 launches (forward, backward) by step "
+        f"{k3_steps}"
     )
 
     # The resume: a second Trainer on the same directory.
@@ -3071,6 +3309,7 @@ def main() -> int:
               "CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    from deep_visual_slam_torch.ops.decoder_pad_cuda import decoder_pad
     from deep_visual_slam_torch.ops.photometric_cuda import reprojection_loss
     from deep_visual_slam_torch.utils.config import load_config
 
@@ -3079,23 +3318,38 @@ def main() -> int:
     rates, card = phase_card()
     k1_row = phase_k1(rates)
     bwd_row = phase_k1_backward(rates)
-    phase_serving(reprojection_loss)
-    eval_launches = phase_eval(reprojection_loss, k1_row["ms"], config)
-    (train_fwd, train_bwd), (stereo_fwd, stereo_bwd) = phase_train(
-        reprojection_loss, k1_row["ms"], bwd_row["ms"], config
-    )
-    (slam_fwd, slam_bwd), kept = phase_slam(reprojection_loss)
-    global_fwd, global_bwd = phase_global_ba(reprojection_loss, kept, card)
-    trainer_fwd, trainer_bwd = phase_trainer(reprojection_loss, kept, card)
-    depth_fwd, depth_bwd = phase_depth(reprojection_loss, card)
-    phase_export(reprojection_loss, card)
-    k2_row, raft_k2, redwood_k2 = phase_raft(reprojection_loss, rates, card, kept)
-    ddp_fwd, ddp_bwd = phase_da_matcher_ddp(reprojection_loss, config, kept, card)
-    orb_fwd, orb_bwd, orb_k2 = phase_orb(reprojection_loss, kept, card)
-    (cli_fwd, cli_bwd, cli_k2), (pred_fwd, pred_bwd, pred_k2) = phase_cli(
-        reprojection_loss, config, kept, card)
-    (node_fwd, node_bwd, node_k2), (rec_fwd, rec_bwd, rec_k2) = phase_node_records(
-        reprojection_loss, config, kept, card)
+    k3_rows = phase_k3(rates)
+    k3_by_path = {}
+
+    def k3_counted(path, run, *args):
+        """``run(*args)`` with K3's counts set to 0 before it, recorded."""
+        decoder_pad.launches = decoder_pad.backward_launches = 0
+        out = run(*args)
+        k3_by_path[path] = (decoder_pad.launches, decoder_pad.backward_launches)
+        return out
+
+    k3_counted("serving", phase_serving, reprojection_loss)
+    eval_launches = k3_counted("eval", phase_eval, reprojection_loss, k1_row["ms"], config)
+    (train_fwd, train_bwd), (stereo_fwd, stereo_bwd) = k3_counted(
+        "train_stereo", phase_train, reprojection_loss, k1_row["ms"], bwd_row["ms"], config)
+    (slam_fwd, slam_bwd), kept = k3_counted("slam", phase_slam, reprojection_loss)
+    global_fwd, global_bwd = k3_counted("global_ba", phase_global_ba, reprojection_loss,
+                                        kept, card)
+    trainer_fwd, trainer_bwd = k3_counted("trainer", phase_trainer, reprojection_loss, kept,
+                                          card)
+    depth_fwd, depth_bwd = k3_counted("depth", phase_depth, reprojection_loss, card)
+    k3_counted("export", phase_export, reprojection_loss, card)
+    k2_row, raft_k2, redwood_k2 = k3_counted("raft_redwood", phase_raft, reprojection_loss,
+                                             rates, card, kept)
+    ddp_fwd, ddp_bwd = k3_counted("da_matcher_ddp", phase_da_matcher_ddp, reprojection_loss,
+                                  config, kept, card)
+    orb_fwd, orb_bwd, orb_k2 = k3_counted("orb", phase_orb, reprojection_loss, kept, card)
+    (cli_fwd, cli_bwd, cli_k2), (pred_fwd, pred_bwd, pred_k2) = k3_counted(
+        "slam_cli_predict", phase_cli, reprojection_loss, config, kept, card)
+    (node_fwd, node_bwd, node_k2), (rec_fwd, rec_bwd, rec_k2) = k3_counted(
+        "ros2_node_records", phase_node_records, reprojection_loss, config, kept, card)
+    print("K3 launches (forward, backward) by phase: " + ", ".join(
+        f"{path} {counts}" for path, counts in k3_by_path.items()))
     # Each main path ran with the counts set to 0 just before it. DA-V2,
     # the matcher, the ORB loop, the CLIs' loops, the ROS2 node and the
     # trained-checkpoint scripts launch none of the port's kernels.
@@ -3117,7 +3371,10 @@ def main() -> int:
                                   "depth_anything": 0, "matcher": 0, "ddp": 0, "orb": orb_k2,
                                   "slam_cli": cli_k2, "predict": pred_k2, "ros2_node": node_k2,
                                   "records": rec_k2}
-    rows = [k1_row, bwd_row, k2_row]
+    # K3 runs wherever DepthNet runs on the card, counted by phase.
+    k3_rows[0]["launches_by_path"] = {path: f for path, (f, _) in k3_by_path.items()}
+    k3_rows[1]["launches_by_path"] = {path: b for path, (_, b) in k3_by_path.items()}
+    rows = [k1_row, bwd_row, k2_row, *k3_rows]
     for row in rows:
         row["launches"] = sum(row["launches_by_path"].values())
         check(row["launches"] > 0, f"{row['name']} launched on the main path")

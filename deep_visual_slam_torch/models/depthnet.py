@@ -18,6 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from deep_visual_slam_torch.models.resnet import BASE_CH_ENC, ResNetEncoder
+from deep_visual_slam_torch.ops.decoder_pad_cuda import decoder_pad
 
 DEC_CHANNELS = (16, 32, 64, 128, 256)
 SCALES = (0, 1, 2, 3)
@@ -32,7 +33,11 @@ def init_conv(conv: nn.Conv2d, generator: torch.Generator | None) -> None:
 
 
 class ReflectConv3x3(nn.Module):
-    """Reflection-pad(1) + 3x3 conv (the reference's ``Conv3x3``)."""
+    """Reflection-pad(1) + 3x3 conv (the reference's ``Conv3x3``).
+
+    ``DepthDecoder`` calls ``self.conv`` on the padded inputs that
+    ``decoder_pad`` writes once for all their convs; ``forward``, which pads
+    its own input, is the reference the decoder is tested against."""
 
     def __init__(self, inp: int, out: int):
         super().__init__()
@@ -43,7 +48,8 @@ class ReflectConv3x3(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """ReflectConv3x3 + ELU."""
+    """ReflectConv3x3 + ELU; ``forward`` is a reference, as
+    :class:`ReflectConv3x3`'s is."""
 
     def __init__(self, inp: int, out: int):
         super().__init__()
@@ -86,18 +92,20 @@ class DepthDecoder(nn.ModuleList):
     def forward(
         self, features: List[torch.Tensor]
     ) -> Dict[Tuple[str, int], torch.Tensor]:
+        # Each padded input is written once, for every conv that reads it:
+        # x, the padded output of upconv_i_1, feeds dispconv_i, the next
+        # level's upconv_{i-1}_0 and, at level 0, uncconv_0.
         outputs: Dict[Tuple[str, int], torch.Tensor] = {}
-        x = features[-1]
+        x = decoder_pad(features[-1], elu=False)
         for k, i in enumerate(range(4, -1, -1)):
-            x = self[2 * k](x)
-            x = F.interpolate(x, scale_factor=2, mode="nearest")
-            if i > 0:
-                x = torch.cat([x, features[i - 1]], dim=1)
-            x = self[2 * k + 1](x)
+            y = self[2 * k].conv.conv(x)
+            skip = features[i - 1] if i > 0 else None
+            y = self[2 * k + 1].conv.conv(decoder_pad(y, skip, up=True))
+            x = decoder_pad(y)
             if i in SCALES:
-                outputs[("disp", i)] = torch.sigmoid(self[10 + i](x).float())
+                outputs[("disp", i)] = torch.sigmoid(self[10 + i].conv(x).float())
         if self.predict_uncertainty:
-            outputs[("unc", 0)] = torch.sigmoid(self[14](x).float())
+            outputs[("unc", 0)] = torch.sigmoid(self[14].conv(x).float())
         return outputs
 
 

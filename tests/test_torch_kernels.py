@@ -26,6 +26,17 @@ in one launch: atol 1e-4 on correlations up to ~5 (the kernel dots before it
 blends and sums in another order; 4.6e-5 measured at D = 128 in the
 per-pixel form).
 
+K3 (the decoder's padded conv inputs) against its plain version at the
+11 launches of a DepthNet forward at 480x640, at the depth cell's B = 64 and
+the VO cell's B = 16, and at 96x128, and at small edge shapes, in bf16 and
+fp32, with channels-last encoder features as the encoder gives them. Copied elements (the padding, the upsample, the
+skip, the unactivated feature) are exactly equal; the ELU's within one ulp
+of the working type. The gradients are held to the plain version's in
+float64: the kernel rounds once (half an ulp, 2^-8 of the value in bf16)
+and reads the ELU's derivative back from P rounded to the working type
+(an ulp of 1: 2^-8 times the gathered sum in bf16), and sums up to nine
+terms in fp32 (1e-6 of the largest sum).
+
 Depth-Anything-V2 (vits, 56x84), the ORB matcher and ORB itself run no
 kernel of the port's own; their card checks sit here because this file
 needs no JAX (nor cv2).
@@ -41,6 +52,7 @@ import pytest
 import torch
 
 from deep_visual_slam_torch.ops import correlation, correlation_cuda, photometric_cuda
+from deep_visual_slam_torch.ops.decoder_pad_cuda import decoder_pad, decoder_pad_plain
 
 
 @pytest.fixture
@@ -358,3 +370,173 @@ def test_orb_on_card_matches_cpu(cuda_device):
         kc, dc = frontend.extract_features(rgb, device="cpu")
         kg, dg = frontend.extract_features(rgb, device=cuda_device)
         assert np.array_equal(kc, kg) and np.array_equal(dc, dg)
+
+
+ENC_CH, DEC_CH = (64, 64, 128, 256, 512), (16, 32, 64, 128, 256)
+
+
+def decoder_pad_forms(B, H=480, W=640):
+    """(label, y shape, y channels-last, skip shape or None, elu, up) of the
+    11 launches of a DepthNet forward at B x H x W, in launch order."""
+    forms = [("f4", (B, ENC_CH[4], H >> 5, W >> 5), True, None, False, False)]
+    for i in range(4, -1, -1):
+        skip = (B, ENC_CH[i - 1], H >> i, W >> i) if i > 0 else None
+        forms.append((f"upconv_{i}_1 input", (B, DEC_CH[i], H >> (i + 1), W >> (i + 1)),
+                      False, skip, True, True))
+        forms.append((f"upconv_{i}_1 output", (B, DEC_CH[i], H >> i, W >> i),
+                      False, None, True, False))
+    return forms
+
+
+# Per working type: an ulp of values in [1, 2) (the ELU's forward and its
+# derivative read from P), and the final rounding's relative bound.
+K3_ULP = {torch.bfloat16: 2.0**-7, torch.float32: 2.0**-23}
+K3_ROUND = {torch.bfloat16: 2.0**-8, torch.float32: 2.0**-22}
+
+
+# Small shapes at the edges of the row and column arithmetic: one source
+# row that both edge rows reflect onto (3 rows without the upsample, 1 with
+# it), 2 rows or columns, odd sizes, with and without the ELU and the skip.
+DECODER_PAD_EDGES = [
+    ("3 rows", (2, 8, 3, 5), False, None, True, False),
+    ("3 rows, no ELU", (2, 8, 3, 4), True, None, False, False),
+    ("2x2", (1, 4, 2, 2), False, None, True, False),
+    ("1 row up", (2, 4, 1, 3), False, (2, 6, 2, 6), True, True),
+    ("1x1 up, no skip", (1, 4, 1, 1), False, None, True, True),
+    ("odd up", (2, 3, 3, 5), False, (2, 5, 6, 10), True, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["b64_480x640", "b16_480x640", "b4_96x128", "edges"])
+def test_decoder_pad_kernel_matches_plain_on_card(cuda_device, case, dtype):
+    """At both cells' shapes, at 96x128 (the encoder's last feature 3 rows
+    high) and at ``DECODER_PAD_EDGES``, forward and backward."""
+    forms = {"b64_480x640": lambda: decoder_pad_forms(64),
+             "b16_480x640": lambda: decoder_pad_forms(16),
+             "b4_96x128": lambda: decoder_pad_forms(4, 96, 128),
+             "edges": lambda: DECODER_PAD_EDGES}[case]()
+    g = torch.Generator(device=cuda_device).manual_seed(len(case))
+
+    def randn(shape, channels_last=False):
+        t = torch.randn(shape, device=cuda_device, generator=g).to(dtype)
+        return t.contiguous(memory_format=torch.channels_last) if channels_last else t
+
+    for label, y_shape, y_cl, skip_shape, elu, up in forms:
+        y = randn(y_shape, y_cl)
+        skip = None if skip_shape is None else randn(skip_shape, True)
+        leaves = [t.clone().requires_grad_() for t in (y, skip) if t is not None]
+        launches = decoder_pad.launches, decoder_pad.backward_launches
+        out = decoder_pad(*leaves, elu=elu, up=up)
+        dout = randn(out.shape)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        assert (decoder_pad.launches, decoder_pad.backward_launches) == (
+            launches[0] + 1, launches[1] + 1), label
+        assert out.dtype == dtype and out.is_contiguous(), label
+
+        with torch.no_grad():
+            ref = decoder_pad_plain(y, skip, elu=elu, up=up)
+        C1 = y_shape[1]
+        if elu:
+            assert torch.equal(out[:, C1:], ref[:, C1:]), label
+            got, want = out[:, :C1].float(), ref[:, :C1].float()
+            assert ((got - want).abs() <= K3_ULP[dtype] * want.abs()).all(), label
+        else:
+            assert torch.equal(out, ref), label
+        del out, ref
+
+        # Float64 references: the gradient, and the gathered sums without
+        # the ELU's derivative.
+        refs = []
+        for with_elu in (elu, False):
+            leaves64 = [t.double().requires_grad_() for t in (y, skip) if t is not None]
+            decoder_pad_plain(*leaves64, elu=with_elu, up=up).backward(dout.double())
+            refs.append([t.grad for t in leaves64])
+        for k, (leaf, want, sums) in enumerate(zip(leaves, *refs)):
+            got = leaf.grad
+            assert got.dtype == dtype and got.stride() == leaf.stride(), label
+            deriv = K3_ULP[dtype] if (elu and k == 0) else 0.0
+            tol = (K3_ROUND[dtype] * want.abs() + deriv * sums.abs()
+                   + 1e-6 * sums.abs().max())
+            assert ((got.double() - want).abs() <= tol).all(), (label, k)
+        del leaves, refs, dout
+
+
+@pytest.mark.cuda
+def test_decoder_pad_kernel_rejects_what_it_cannot_take(cuda_device):
+    y = torch.randn(1, 4, 3, 3, device=cuda_device)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            decoder_pad(y.to(dtype))
+    with pytest.raises(ValueError):  # skip on another device
+        decoder_pad(y, torch.randn(1, 2, 6, 6), up=True)
+    with pytest.raises(ValueError):  # skip in another dtype
+        decoder_pad(y, torch.randn(1, 2, 6, 6, device=cuda_device).bfloat16(), up=True)
+    with pytest.raises(ValueError):  # skip not at twice y's size
+        decoder_pad(y, torch.randn(1, 2, 5, 6, device=cuda_device), up=True)
+    with pytest.raises(ValueError):  # one row: the reflect pad needs two
+        decoder_pad(y[:, :, :1])
+
+
+@pytest.mark.cuda
+def test_decoder_pad_launches_11_and_11_a_depthnet_train_step(cuda_device, monkeypatch):
+    """A depth train step on the card takes K3 for every padded input: the
+    plain composition (F.pad, F.elu, F.interpolate, torch.cat) never runs."""
+    from deep_visual_slam_torch.ops import decoder_pad_cuda
+    from deep_visual_slam_torch.training import (
+        DepthLossConfig,
+        TrainState,
+        init_depth_model,
+        make_depth_train_step,
+    )
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain composition ran on the card")
+
+    monkeypatch.setattr(decoder_pad_cuda, "decoder_pad_plain", refuse)
+    model = init_depth_model(0)
+    state = TrainState.create(model, None, 1e-4, 100)
+    step = make_depth_train_step(model, DepthLossConfig(), torch.bfloat16, device=cuda_device)
+    g = torch.Generator().manual_seed(0)
+    B, H, W = 2, 64, 96
+    batch = {"image": torch.rand(B, H, W, 3, generator=g),
+             "depth": 0.5 + 5 * torch.rand(B, H, W, 1, generator=g),
+             "valid_mask": torch.ones(B, H, W, 1)}
+    launches = decoder_pad.launches, decoder_pad.backward_launches
+    losses = step(state, batch)
+    torch.cuda.synchronize()
+    assert (decoder_pad.launches - launches[0],
+            decoder_pad.backward_launches - launches[1]) == (11, 11)
+    assert torch.isfinite(losses["loss"])
+
+
+@pytest.mark.cuda
+def test_vo_export_traces_the_plain_route_and_runs_on_card(cuda_device, tmp_path):
+    """The exported step holds the plain composition (a ctypes launch cannot
+    run on a trace's fake tensors) and agrees with the eager networks, which
+    launch K3."""
+    from deep_visual_slam_torch.training import init_vo_models
+    from deep_visual_slam_torch.utils.export import (
+        export_vo_inference,
+        load_exported,
+        make_vo_inference_fn,
+    )
+
+    depth, pose = init_vo_models(0)
+    H, W = 64, 96
+    launches = decoder_pad.launches
+    path = export_vo_inference(depth, pose, str(tmp_path / "vo.pt2"), (H, W),
+                               device=cuda_device)
+    assert decoder_pad.launches == launches
+    g = torch.Generator().manual_seed(1)
+    frame, prev = ((255 * torch.rand(1, H, W, 3, generator=g)).to(torch.uint8).to(cuda_device)
+                   for _ in range(2))
+    with torch.inference_mode():
+        got = load_exported(path)(frame, prev)
+        assert decoder_pad.launches == launches
+        want = make_vo_inference_fn(depth, pose)(frame, prev)
+    assert decoder_pad.launches > launches
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0)  # depth
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)  # T
