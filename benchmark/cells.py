@@ -5,9 +5,11 @@ configurations and the metrics. A cell's configuration is the ``file`` its
 ``configs`` entry names; its traffic is ``benchmark/traffic/<traffic>.json``;
 its limits are ``benchmark/limits/<cell>.json``; the driver of its traffic
 is ``benchmark/drivers/<driver>.py``, where the configuration names
-``driver``; a per-layer metric ``m`` is read by ``benchmark/metrics/<m>.py``.
-A later change adds a cell, a configuration or a metric by adding such
-files and entries; none of this code needs an edit for it.
+``driver``, and a driver finds the plain reference of its network as
+``benchmark/reference/<name>.py``; a per-layer metric ``m`` is read by
+``benchmark/metrics/<m>.py``. A later change adds a cell, a configuration,
+a network or a metric by adding such files and entries; none of this code
+needs an edit for it.
 """
 
 from __future__ import annotations
@@ -82,6 +84,14 @@ def driver(cell: Cell):
     kind = cell.config["driver"]
     return _module(cell.root / "benchmark" / "drivers" / f"{kind}.py",
                    f"benchmark_driver_{kind}").Driver
+
+
+def reference(cell: Cell, name: str):
+    """The plain reference module ``benchmark/reference/<name>.py`` of the
+    cell's checkout, found by name as a driver is: a driver of another
+    network takes its parameters, checked steps and FLOP count from it."""
+    return _module(cell.root / "benchmark" / "reference" / f"{name}.py",
+                   f"benchmark_reference_{name}")
 
 
 def metric_reader(cell: Cell, metric: str) -> Callable:

@@ -2,15 +2,14 @@
 reading and the plain reference's, and their verdict against the cell's
 limits. A cell's limits file names the numbers it compares.
 
-- ``fwd``: over the networks' outputs in the first step (the disparities
-  at each scale, PoseNet's axis-angles and translations), the largest
-  relative L2 error of the program's output against the reference's;
-  infinite where the program gives another shape.
+- ``fwd``: over the networks' outputs in the first step (each tensor a
+  network returns), the largest relative L2 error of the program's output
+  against the reference's; infinite where the program gives another shape.
 - ``ddisp``: over the batch's samples, the largest gap between the norms
-  of the loss's gradient that reaches the sample's disparities (every
-  scale together) in the first step, over the reference's. A loss that
-  leaves rows out reads 1 on them; infinite where the program gives
-  another shape.
+  of the loss's gradient that reaches the sample's outputs of the first
+  network (every output together: the disparities at every scale) in the
+  first step, over the reference's. A loss that leaves rows out reads 1 on
+  them; infinite where the program gives another shape.
 - ``loss``: the largest relative gap of a checked step's loss;
   ``loss1``: that of the first step alone, before any update.
 - ``grad``: over the leaves, the largest gap between the norms of the

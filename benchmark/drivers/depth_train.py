@@ -12,8 +12,6 @@ from benchmark.training import TrainDriver
 
 
 class Driver(TrainDriver):
-    kind = "depth"
-
     def build_models(self):
         from deep_visual_slam_torch.models import DepthNet
 

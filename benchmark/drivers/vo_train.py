@@ -13,8 +13,6 @@ from benchmark.training import TrainDriver
 
 
 class Driver(TrainDriver):
-    kind = "vo"
-
     def build_models(self):
         from deep_visual_slam_torch.models import DepthNet, PoseNet
 

@@ -14,7 +14,7 @@ from typing import Dict, List
 import torch
 import torch.nn.functional as F
 
-from benchmark.reference import losses, nets
+from benchmark.reference import losses
 
 WEIGHTS, BATCHES, NOISE = 1, 2, 3
 
@@ -23,37 +23,30 @@ def generator(seed: int, stream: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed((seed * 16 + stream) % 2**63)
 
 
-def network_specs(config: Dict) -> List[tuple]:
-    """(name, shape, kind) of every trained parameter, prefixed by network."""
-    spec = [("depth." + n, s, k) for n, s, k in nets.depthnet_spec()]
-    if config["networks"] == "depth_pose":
-        spec += [("pose." + n, s, k) for n, s, k in nets.posenet_spec()]
-    return spec
-
-
-def draw_weights(config: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """He-uniform convolutions (bound sqrt(6 / fan_in)), biases uniform in
-    +-1/sqrt(fan_in), BatchNorm scale 1 and shift 0; one uniform draw for
-    all of them, fp32."""
-    spec = network_specs(config)
+def draw_weights(spec: List[tuple], seed: int, device) -> Dict[str, torch.Tensor]:
+    """The parameters that ``spec`` lists as (name, shape, kind), in its
+    order: a ``weight`` He-uniform (bound sqrt(6 / fan_in), fan_in the
+    product of its shape after the first axis), a ``bias`` uniform in
+    +-1/sqrt(fan_in) of its module's weight, ``ones`` and ``zeros`` as
+    named; one uniform draw for all of them, fp32."""
     total = sum(math.prod(s) for _, s, _ in spec)
     u = torch.rand(total, generator=generator(seed, WEIGHTS, device), device=device) * 2 - 1
     out, at = {}, 0
     for name, shape, kind in spec:
         n = math.prod(shape)
-        if kind == "bn_weight":
+        if kind == "ones":
             out[name] = torch.ones(shape, device=device)
-        elif kind == "bn_bias":
+        elif kind == "zeros":
             out[name] = torch.zeros(shape, device=device)
         else:
-            fan_in = math.prod(_conv_shape(spec, name)[1:])
-            bound = math.sqrt(6.0 / fan_in) if kind == "conv" else 1.0 / math.sqrt(fan_in)
+            fan_in = math.prod(_weight_shape(spec, name)[1:])
+            bound = math.sqrt(6.0 / fan_in) if kind == "weight" else 1.0 / math.sqrt(fan_in)
             out[name] = (u[at:at + n] * bound).view(shape).clone()
         at += n
     return out
 
 
-def _conv_shape(spec, name):
+def _weight_shape(spec, name):
     weight = name.rsplit(".", 1)[0] + ".weight"
     return next(s for n, s, _ in spec if n == weight)
 

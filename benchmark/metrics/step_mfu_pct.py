@@ -1,7 +1,8 @@
 """step_mfu_pct: the model FLOPs of the window's steps (counted once on the
-plain reference networks: 2 a multiply-add of every convolution, times 3
-for the forward and the backward) over the window's seconds times the
-cards times each card's dense bf16 peak, in %."""
+plain reference networks: 2 a multiply-add of every convolution,
+transposed convolution and matrix product, times 3 for the forward and the
+backward) over the window's seconds times the cards times each card's
+dense bf16 peak, in %."""
 
 
 def read(run):

@@ -10,7 +10,9 @@ it is given, biased variance, eps 1e-5. The forward passes take a
 :class:`Precision`: every convolution goes through its ``conv`` and every
 intermediate tensor through its ``q``, so that the same forward runs in
 fp32, with every network tensor in emulated fp8 (:class:`FP8`, the control), or
-on meta tensors to count operations (:class:`FlopCounter`).
+on meta tensors to count operations (:class:`FlopCounter`). Its ``matmul``
+and ``conv_transpose`` serve other networks' references in the same way;
+these two networks use neither.
 """
 
 from __future__ import annotations
@@ -39,6 +41,14 @@ class Precision:
 
     def conv(self, x, w, b=None, stride=1, padding=0):
         return self.q(F.conv2d(self.q(x), self.q(w), b, stride, padding))
+
+    def conv_transpose(self, x, w, b=None, stride=1, padding=0):
+        return self.q(F.conv_transpose2d(self.q(x), self.q(w), b, stride, padding))
+
+    def matmul(self, a, b):
+        """``a @ b``: a linear layer's product (its bias added after) or one
+        of attention's two products."""
+        return self.q(torch.matmul(self.q(a), self.q(b)))
 
 
 def _round_fp8(t: torch.Tensor, dtype: torch.dtype, top: float) -> torch.Tensor:
@@ -74,8 +84,9 @@ class FP8(Precision):
 
 
 class FlopCounter(Precision):
-    """Counts 2 operations per multiply-add of every convolution from the
-    shapes (on meta tensors, nothing is computed)."""
+    """Counts 2 operations per multiply-add of every convolution, transposed
+    convolution and matrix product from the shapes (on meta tensors,
+    nothing is computed)."""
 
     def __init__(self):
         self.flops = 0
@@ -86,6 +97,18 @@ class FlopCounter(Precision):
         self.flops += 2 * n * c_out * h * wd * w.shape[1] * w.shape[2] * w.shape[3]
         return y
 
+    def conv_transpose(self, x, w, b=None, stride=1, padding=0):
+        """Every input pixel times the whole [C_in, C_out, k, k] kernel,
+        cropped outputs included."""
+        y = F.conv_transpose2d(x, w, b, stride, padding)
+        self.flops += 2 * x.shape[0] * x.shape[2] * x.shape[3] * w.numel()
+        return y
+
+    def matmul(self, a, b):
+        y = torch.matmul(a, b)
+        self.flops += 2 * y.numel() * a.shape[-1]
+        return y
+
 
 FP32 = Precision()
 
@@ -93,27 +116,29 @@ FP32 = Precision()
 # --- parameter lists -------------------------------------------------------
 
 def _bn_spec(name: str, ch: int):
-    return [(f"{name}.weight", (ch,), "bn_weight"), (f"{name}.bias", (ch,), "bn_bias")]
+    return [(f"{name}.weight", (ch,), "ones"), (f"{name}.bias", (ch,), "zeros")]
 
 
 def _encoder_spec(prefix: str, in_ch: int):
-    spec = [(f"{prefix}conv1.weight", (64, in_ch, 7, 7), "conv")] + _bn_spec(f"{prefix}bn1", 64)
+    spec = [(f"{prefix}conv1.weight", (64, in_ch, 7, 7), "weight")] + _bn_spec(f"{prefix}bn1", 64)
     inp = 64
     for stage, (width, blocks) in enumerate(zip(STAGE_WIDTHS, STAGE_BLOCKS)):
         for i in range(blocks):
             stride = 2 if stage > 0 and i == 0 else 1
             p = f"{prefix}layer{stage + 1}.{i}."
-            spec += [(p + "conv1.weight", (width, inp, 3, 3), "conv")] + _bn_spec(p + "bn1", width)
-            spec += [(p + "conv2.weight", (width, width, 3, 3), "conv")] + _bn_spec(p + "bn2", width)
+            spec += [(p + "conv1.weight", (width, inp, 3, 3), "weight")]
+            spec += _bn_spec(p + "bn1", width)
+            spec += [(p + "conv2.weight", (width, width, 3, 3), "weight")]
+            spec += _bn_spec(p + "bn2", width)
             if stride != 1 or inp != width:
-                spec += [(p + "downsample.0.weight", (width, inp, 1, 1), "conv")]
+                spec += [(p + "downsample.0.weight", (width, inp, 1, 1), "weight")]
                 spec += _bn_spec(p + "downsample.1", width)
             inp = width
     return spec
 
 
 def _conv_spec(name: str, out: int, inp: int, k: int):
-    return [(f"{name}.weight", (out, inp, k, k), "conv"), (f"{name}.bias", (out,), "bias")]
+    return [(f"{name}.weight", (out, inp, k, k), "weight"), (f"{name}.bias", (out,), "bias")]
 
 
 def depthnet_spec() -> List[Tuple[str, tuple, str]]:

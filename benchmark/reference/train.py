@@ -1,14 +1,16 @@
 """Plain training steps: the networks' forward in full, the loss in blocks of
 rows, autograd's backward, and Adam (or AdamW) written out.
 
-Parameters are one dict ``{"depth.<name>": tensor, "pose.<name>": tensor}``
+``run_steps`` drives any network's loss function through the steps that
+decide ``correct``. The two loss functions here are DepthNet's (with PoseNet
+for VO), over one dict ``{"depth.<name>": tensor, "pose.<name>": tensor}``
 (``pose.`` absent for supervised depth). A step returns the loss and
 updates the parameters and the Adam moments in place.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import torch
 
@@ -109,12 +111,15 @@ class Adam:
             p.grad = None
 
 
-def run_steps(kind: str, params: Params, batches: Sequence, noises: Sequence, cfg: Dict,
+def run_steps(loss_and_grads: Callable, params: Params, batches: Sequence, noises: Sequence,
               optim: Dict, precision=nets.FP32) -> Dict:
     """``len(batches)`` training steps from ``params`` (updated in place).
-    Returns each step's loss, the first step's network outputs, the loss's
-    gradient with respect to its disparities and the gradient per leaf, and
-    the parameters after the last step."""
+    ``loss_and_grads(params, batch, noise, precision)`` returns a batch's
+    loss, the networks' outputs and the loss's gradient with respect to each
+    output the check compares by row, and leaves each parameter's gradient
+    in its ``.grad``. Returns each step's loss, the first step's outputs and
+    those gradients, the gradient per leaf, and the parameters after the
+    last step."""
     for p in params.values():
         p.requires_grad_(True)
     adam = Adam(params, optim["lr"], optim["beta1"], weight_decay=optim["weight_decay"])
@@ -122,10 +127,7 @@ def run_steps(kind: str, params: Params, batches: Sequence, noises: Sequence, cf
     first_grad = first_outputs = first_ddisp = None
     for i, batch in enumerate(batches):
         noise = noises[i] if noises else None
-        if kind == "vo":
-            loss, outputs, ddisp = vo_loss_and_grads(params, batch, noise, cfg, precision)
-        else:
-            loss, outputs, ddisp = depth_loss_and_grads(params, batch, cfg, precision)
+        loss, outputs, ddisp = loss_and_grads(params, batch, noise, precision)
         if first_grad is None:
             first_grad = {k: p.grad.detach().clone() for k, p in params.items()}
             first_outputs, first_ddisp = outputs, ddisp

@@ -231,12 +231,12 @@ def run_rank(args, cell, rank: int, world: int, port: int):
     marks = [("joined", time.perf_counter())]
     driver = cells.driver(cell)(cell, args.seed, device, mesh, B, H, W, traffic["pool"],
                                 args.fault)
+    flops = driver.trained.flops(B * world, H, W)
     marks.append(("weights, inputs, step built", time.perf_counter()))
     program = driver.check_steps()
     marks.append(("checked steps", time.perf_counter()))
     for _ in range(traffic["warmup_steps"]):
         driver.step(driver.next_entry())
-    flops = yardsticks.train_step_flops(cell.config, B * world, H, W)
     marks.append(("warm-up steps", time.perf_counter()))
     if rank == 0:
         phases, last = [], T0

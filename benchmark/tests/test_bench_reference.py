@@ -2,9 +2,11 @@
 imports both; the reference imports nothing of the port."""
 
 import ast
+import hashlib
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -16,8 +18,10 @@ BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
 
 
-def _weights(config, seed=3):
-    return inputs.draw_weights(config, seed, "cpu")
+def _weights(cell, seed=3):
+    spec = cells.driver(cell).networks(
+        SimpleNamespace(config=cell.config, optim=cell.config["optimizer"])).spec
+    return inputs.draw_weights(spec, seed, "cpu")
 
 
 def _port_models(weights):
@@ -32,7 +36,7 @@ def _port_models(weights):
 
 def test_networks_match_the_port_in_fp32():
     cell = cells.load("vo_train.b16")
-    w = _weights(cell.config)
+    w = _weights(cell)
     depth, pose = _port_models(w)
     g = torch.Generator().manual_seed(0)
     image = torch.rand(2, 64, 96, 3, generator=g)
@@ -77,16 +81,72 @@ def test_depth_step_matches_the_port_in_fp32():
     assert found["ddisp"] < 1e-4
 
 
-def test_the_control_rounds_to_fp8():
+@pytest.mark.parametrize("op", ["conv", "conv_transpose", "matmul"])
+def test_the_control_rounds_to_fp8(op):
+    """Each product of the networks, here one that returns its input,
+    rounds its operands and output to e4m3 and the gradient to e5m2."""
     x = torch.tensor([[[[1.0, 0.3, -0.07, 448.0]]]], requires_grad=True)
-    w = torch.ones(1, 1, 1, 1)
-    y = nets.FP8().conv(x, w)
+    w = torch.eye(4) if op == "matmul" else torch.ones(1, 1, 1, 1)
+    y = getattr(nets.FP8(), op)(x, w)
     # amax 448 maps to 448: the values are e4m3's own.
     assert torch.equal(y, x.detach().to(torch.float8_e4m3fn).float())
     g = torch.tensor([[[[1.0, 0.3, -0.07, 57344.0]]]])
     y.backward(g)
     assert torch.equal(x.grad, g.to(torch.float8_e5m2).float())
-    assert nets.FP32.conv(x, w) is not None and torch.equal(nets.FP32.q(x), x)
+    assert torch.equal(getattr(nets.FP32, op)(x, w), x) and torch.equal(nets.FP32.q(x), x)
+
+
+# Both cells at 2x64x64 in their own bf16 from seed 2147483659, two threads,
+# as the harness before the networks moved into the driver read them: the
+# drawn weights' digest (fp32 bytes in draw order), the program's and the
+# reference's losses, their leaf norms summed, and the check's numbers.
+BEFORE = {
+    "vo_train.b16": {
+        "digest": "b88d3bda336f8d746593ed1b1fd346c18effd4537b0a88569747b59988d09902",
+        "prog_losses": [0.05968949943780899, 0.05248214304447174, 0.044946182519197464],
+        "ref_losses": [0.05973473936319351, 0.05228215456008911, 0.04617847502231598],
+        "prog_grad": 2.1287781989192274, "ref_grad": 2.0070987203032873,
+        "prog_change": 5.587696458027416, "ref_change": 5.6432745668027735,
+        "numbers": {"fwd": 0.09459880844515621, "ddisp": 0.11769088418391624,
+                    "loss": 0.026685430874947767, "loss1": 0.0007573469955139164,
+                    "grad": 0.3120707006893033, "grad_p90": 0.07997571293209152,
+                    "grad_median": 0.021721104592091162, "change": 0.13892962494091185,
+                    "change_p90": 0.03619480961423078,
+                    "change_median": 0.017715357696070536}},
+    "depth_train.b64": {
+        "digest": "1fc220651fd4333cb18334d13c7ba13efebc2ad2e14cb65bc533c65f87edc1aa",
+        "prog_losses": [2.5047576427459717, 1.7845405340194702, 1.556902527809143],
+        "ref_losses": [2.50529408454895, 1.772516131401062, 1.5545903444290161],
+        "prog_grad": 98.51567114084715, "ref_grad": 99.07035103705364,
+        "prog_change": 3.287157529634198, "ref_change": 3.294791988532642,
+        "numbers": {"fwd": 0.02586319380109263, "ddisp": 0.004622027946836872,
+                    "loss": 0.006783804336327068, "loss1": 0.00021412328647839996,
+                    "grad": 0.10242029103408938, "grad_p90": 0.027700169019713724,
+                    "grad_median": 0.007976326098128544, "change": 0.0422152572320467,
+                    "change_p90": 0.015788805181813616,
+                    "change_median": 0.003429757382574606}},
+}
+
+
+@pytest.mark.parametrize("workload", sorted(BEFORE))
+def test_the_cells_draw_and_check_as_before(workload):
+    cell = cells.load(workload)
+    driver = cells.driver(cell)(cell, 2147483659, torch.device("cpu"), None, 2, 64, 64, 3)
+    flat = torch.cat([v.reshape(-1) for v in driver.init_weights.values()])
+    found = {"digest": hashlib.sha256(flat.numpy().tobytes()).hexdigest()}
+    prog = driver.check_steps()
+    driver.free()
+    ref = driver.reference_reading()
+    for side, r in (("prog", prog), ("ref", ref)):
+        found[f"{side}_losses"] = r["losses"]
+        found[f"{side}_grad"] = sum(r["grad"].values())
+        found[f"{side}_change"] = sum(r["change"].values())
+    found["numbers"] = check.numbers(prog, ref)
+    before = BEFORE[workload]
+    assert found["digest"] == before["digest"]
+    for key in before:
+        if key != "digest":
+            assert found[key] == pytest.approx(before[key], rel=1e-6), key
 
 
 def _imports(path: Path):

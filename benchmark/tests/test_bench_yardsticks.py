@@ -1,10 +1,19 @@
 """The benchmark's frozen arithmetic against hand-worked values."""
 
+from types import SimpleNamespace
+
 import pytest
 import torch
 
-from benchmark import yardsticks
+from benchmark import cells, yardsticks
 from benchmark.reference import nets
+
+
+def _networks(workload: str):
+    """What the cell's driver says its step trains, without its set-up."""
+    cell = cells.load(workload)
+    return cells.driver(cell).networks(
+        SimpleNamespace(config=cell.config, optim=cell.config["optimizer"]))
 
 
 def test_k1_forward_work_by_hand():
@@ -59,6 +68,27 @@ def test_stem_flops_by_hand():
     assert counter.flops == 2 * 64 * 16 * 16 * 3 * 49
 
 
+def test_matmul_and_conv_transpose_flops_by_hand():
+    # [2, 5, 3] @ [3, 4]: 2 x 5 x 4 outputs of 3 multiply-adds. A stride-2
+    # 2x2 transposed conv over [1, 8, 4, 4] into 6 channels: 16 inputs,
+    # each times the 8 x 6 x 2 x 2 kernel.
+    counter = nets.FlopCounter()
+    with torch.device("meta"):
+        counter.matmul(torch.empty(2, 5, 3), torch.empty(3, 4))
+        assert counter.flops == 2 * 40 * 3
+        y = counter.conv_transpose(torch.empty(1, 8, 4, 4), torch.empty(8, 6, 2, 2), None, 2)
+    assert y.shape == (1, 6, 8, 8)
+    assert counter.flops == 2 * 40 * 3 + 2 * 16 * 8 * 6 * 4
+
+
+@pytest.mark.parametrize("workload, batch, flops", [("vo_train.b16", 16, 4_269_411_532_800),
+                                                    ("depth_train.b64", 64, 7_692_956_467_200)])
+def test_the_cells_count_the_flops_they_always_counted(workload, batch, flops):
+    """A step of each cell at 480x640, as the count on the reference
+    networks has given it since the benchmark began."""
+    assert _networks(workload).flops(batch, 480, 640) == flops
+
+
 def _hooked_flops(model, x):
     """2 per multiply-add of every nn.Conv2d the port's module runs."""
     total = [0]
@@ -89,5 +119,5 @@ def test_reference_count_matches_the_port_modules():
         _hooked_flops(depth, x)
     assert nets.forward_flops(nets.posenet_spec(), nets.posenet, pair.shape) == \
         _hooked_flops(pose, pair)
-    step = yardsticks.train_step_flops({"networks": "depth_pose"}, 2, 64, 96)
+    step = _networks("vo_train.b16").flops(2, 64, 96)
     assert step == 3 * (_hooked_flops(depth, x) + _hooked_flops(pose, pair))

@@ -1,15 +1,19 @@
-"""What the two training drivers share: the program's training step built
-from the configuration and the seed's weights, the pool of input batches,
-the first steps whose readings decide ``correct``, and the plain
-reference's readings of the same steps.
+"""What the training drivers share: the program's training step built from
+the configuration and the seed's weights, the pool of input batches, the
+first steps whose readings decide ``correct``, and the plain reference's
+readings of the same steps.
+
+What a configuration trains (its ``networks``) decides in one place,
+:meth:`TrainDriver.networks`, which weights are drawn, which reference
+steps the program is checked against and which model FLOPs a step counts.
 
 A reading is what a comparison needs and nothing more: each step's loss,
 the networks' outputs in the first step and the norm of each row of the
-loss's gradient with respect to each disparity (on the program's side
-taken by forward and tensor hooks from the step's own call), the norm of each
-leaf of the first gradient as the optimizer got it (Adam's first moment
-after one update, over 1 - beta1), and the norm of each leaf's change
-after the checked steps, all in float64.
+loss's gradient with respect to the first network's outputs (on the
+program's side taken by forward and tensor hooks from the step's own call),
+the norm of each leaf of the first gradient as the optimizer got it (Adam's
+first moment after one update, over 1 - beta1), and the norm of each leaf's
+change after the checked steps, all in float64.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ from __future__ import annotations
 import copy
 import functools
 import time
-from typing import Dict, List, Optional
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -26,6 +31,26 @@ from benchmark import inputs
 from benchmark.reference import nets, train
 
 CHECK_STEPS = 3
+# BatchNorm's running statistics at their initial values.
+BN_STATS = {"running_mean": 0, "running_var": 1, "num_batches_tracked": 0}
+
+
+@dataclass(frozen=True)
+class Networks:
+    """What a configuration's step trains, as the harness draws, checks and
+    counts it.
+
+    ``spec``: (name, shape, kind) of every trained parameter, its name
+    prefixed by its network's, in the order the weights are drawn
+    (``inputs.draw_weights``). ``steps(weights, batches, noises,
+    precision)``: the plain reference's checked steps from those weights
+    (``reference.train.run_steps``' result). ``flops(batch, height,
+    width)``: the model FLOPs of one step over ``batch`` rows, counted on
+    the reference networks."""
+
+    spec: List[Tuple[str, tuple, str]]
+    steps: Callable[..., Dict]
+    flops: Callable[[int, int, int], int]
 
 
 def leaf_norms(tensors: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -47,8 +72,6 @@ class TrainDriver:
     every row, the gradient taken as from the mean over the first half
     alone; ``no_exchange``, the ranks' exchange left out."""
 
-    kind = ""  # "vo" or "depth"
-
     def __init__(self, cell, seed: int, device: torch.device, mesh, batch: int,
                  height: int, width: int, pool: int, fault: Optional[str] = None):
         self.seed, self.device, self.mesh = seed, device, mesh
@@ -56,11 +79,12 @@ class TrainDriver:
         self.world = mesh.world if mesh is not None else 1
         self.rank = mesh.rank if mesh is not None else 0
         self.fault = fault
-        self.config = cell.config
+        self.cell, self.config = cell, cell.config
         self.dtype = getattr(torch, self.config["compute_dtype"])
         self.optim = self.config["optimizer"]
+        self.trained = self.networks()
         start = time.perf_counter()
-        self.init_weights = inputs.draw_weights(self.config, seed, device)
+        self.init_weights = inputs.draw_weights(self.trained.spec, seed, device)
         weights = time.perf_counter()
         self.pool = self._draw_pool(pool, rows=self._rows())
         drawn = time.perf_counter()
@@ -76,7 +100,49 @@ class TrainDriver:
         self.next_batch = 0
 
     # --- what each driver defines -------------------------------------
+    def networks(self) -> Networks:
+        """What the step trains. The base case: DepthNet under the
+        supervised depth loss (``networks``: ``depth``), and DepthNet with
+        PoseNet under the VO loss (``depth_pose``). A driver of another
+        network returns its own, from its reference module
+        (``cells.reference``), and hands any other ``networks`` on to this
+        one, which refuses it."""
+        name = self.config["networks"]
+        if name not in ("depth", "depth_pose"):
+            raise SystemExit(f"configuration {self.config['name']!r}: no driver or reference "
+                             f"defines its networks {name!r} (driver {self.config['driver']!r})")
+        cfg = self.config["loss"]
+        spec = [("depth." + n, s, k) for n, s, k in nets.depthnet_spec()]
+        if name == "depth_pose":
+            spec += [("pose." + n, s, k) for n, s, k in nets.posenet_spec()]
+
+            def loss(params, batch, noise, precision):
+                return train.vo_loss_and_grads(params, batch, noise, cfg, precision)
+        else:
+            def loss(params, batch, noise, precision):
+                return train.depth_loss_and_grads(params, batch, cfg, precision)
+
+        def steps(weights, batches, noises, precision):
+            return train.run_steps(loss, weights, batches, noises, self.optim, precision)
+
+        def flops(batch: int, height: int, width: int) -> int:
+            # 2 per multiply-add of every convolution of the forward, times
+            # 3 for the forward and the backward; VO runs PoseNet on the two
+            # (source, target) pairs of each snippet.
+            n = nets.forward_flops(nets.depthnet_spec(), nets.depthnet,
+                                   (batch, height, width, 3))
+            if name == "depth_pose":
+                n += nets.forward_flops(nets.posenet_spec(), nets.posenet,
+                                        (2 * batch, height, width, 6))
+            return 3 * n
+
+        return Networks(spec, steps, flops)
+
     def build_models(self) -> Dict[str, torch.nn.Module]:
+        """The program's networks by parameter prefix, the network whose
+        outputs the loss reads by row (``ddisp``) first. ``_load`` sets
+        every parameter and BatchNorm's running statistics, and no other
+        buffer: a network with other buffers builds them itself."""
         raise NotImplementedError
 
     def build_step(self, mesh):
@@ -89,25 +155,25 @@ class TrainDriver:
     def call_step(self, entry: Dict) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
 
-    def loss_config(self) -> Dict:
-        """The loss's settings as the reference takes them."""
-        return self.config["loss"]
-
     @staticmethod
     def ordered_outputs(out) -> List[torch.Tensor]:
-        """A network's output tensors in the reference's order: DepthNet's
-        disparities by scale, PoseNet's axis-angles, then translations."""
+        """A network's output tensors in the reference's order: a lone
+        tensor is one output, a dict's come by key, a tuple's in turn."""
+        if isinstance(out, torch.Tensor):
+            return [out]
         return [out[k] for k in sorted(out)] if isinstance(out, dict) else list(out)
 
     @classmethod
     def flat_outputs(cls, out) -> List[torch.Tensor]:
-        """A network's outputs in the reference's order and shapes:
-        DepthNet's disparities by scale, PoseNet's [N, 3] pairs."""
+        """A network's outputs in the reference's order and shapes: a
+        tuple's each flattened to rows, the others as they are."""
         tensors = cls.ordered_outputs(out)
-        return tensors if isinstance(out, dict) else [o.reshape(o.shape[0], -1) for o in tensors]
+        if isinstance(out, (tuple, list)):
+            return [o.reshape(o.shape[0], -1) for o in tensors]
+        return tensors
 
     def reference_rows(self, outputs: List[torch.Tensor]) -> List[torch.Tensor]:
-        """The reference's global outputs cut to this rank's rows (PoseNet's
+        """The reference's global outputs cut to this rank's rows (a network
         run over two pairs a row: this rank's rows of each half)."""
         rows, B = self._rows(), self.batch * self.world
         cut = []
@@ -199,7 +265,7 @@ class TrainDriver:
                 if name in outputs:
                     return
                 outputs[name] = [o.detach().float().cpu() for o in self.flat_outputs(out)]
-                if name != "depth.":
+                if name != first:
                     return
                 for t in self.ordered_outputs(out):
                     ddisp.append(None)
@@ -207,6 +273,7 @@ class TrainDriver:
                         t.register_hook(functools.partial(keep_ddisp, len(ddisp) - 1))
             return hook
 
+        first = next(iter(self.models))
         hooks = [m.register_forward_hook(keep(prefix)) for prefix, m in self.models.items()]
         for i in range(CHECK_STEPS):
             out = self.step(self.next_entry())
@@ -250,15 +317,14 @@ class TrainDriver:
         """The plain reference's readings of the checked steps over the
         global batch, from the seed's weights and inputs, TF32 off."""
         entries = self._draw_pool(CHECK_STEPS, rows=slice(None))
-        weights = inputs.draw_weights(self.config, self.seed, self.device)
+        weights = inputs.draw_weights(self.trained.spec, self.seed, self.device)
         init = {k: v.clone() for k, v in weights.items()}
         flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
         try:
-            out = train.run_steps(
-                self.kind, weights, [e["batch"] for e in entries],
-                [e["noise"] for e in entries if e["noise"] is not None],
-                self.loss_config(), self.optim, precision)
+            out = self.trained.steps(
+                weights, [e["batch"] for e in entries],
+                [e["noise"] for e in entries if e["noise"] is not None], precision)
         finally:
             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
         return {"losses": out["losses"], "grad": leaf_norms(out["first_grad"]),
@@ -269,8 +335,10 @@ class TrainDriver:
 
 
 def _load(model: torch.nn.Module, weights: Dict[str, torch.Tensor], prefix: str) -> None:
-    """The seed's weights into ``model`` by name; BatchNorm's running
-    statistics at their initial values. The names must match exactly."""
+    """The seed's weights into ``model`` by name, and BatchNorm's running
+    statistics at their initial values; every other buffer (a constant of
+    the network, such as an input normalisation) stays as the model built
+    it. The names must match exactly."""
     names = {n for n, _ in model.named_parameters()}
     want = {k[len(prefix):] for k in weights if k.startswith(prefix)}
     if names != want:
@@ -280,7 +348,6 @@ def _load(model: torch.nn.Module, weights: Dict[str, torch.Tensor], prefix: str)
         for n, p in model.named_parameters():
             p.copy_(weights[prefix + n])
         for n, b in model.named_buffers():
-            if n.endswith("running_var"):
-                b.fill_(1)
-            else:
-                b.zero_()
+            start = BN_STATS.get(n.rsplit(".", 1)[-1])
+            if start is not None:
+                b.fill_(start)

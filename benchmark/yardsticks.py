@@ -1,15 +1,13 @@
 """The benchmark's frozen arithmetic: the cards' data-sheet peaks, kernel K1's
-bytes and operations from its shapes, the kernel-name groups of the trace,
-and a training step's model FLOPs counted on the plain reference networks.
-None of it reads the program: a later change to the program cannot move
-these numbers.
+bytes and operations from its shapes, and the kernel-name groups of the
+trace. None of it reads the program: a later change to the program cannot
+move these numbers. A training step's model FLOPs are counted on the plain
+reference networks (``training.TrainDriver.networks``).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
-
-from benchmark.reference import nets
 
 # NVIDIA data sheets, dense rates without sparsity, at the card's full power
 # limit: memory bytes/s, fp32 FLOP/s outside the tensor cores, bf16 tensor
@@ -90,15 +88,3 @@ def group_of(kernel: str) -> Optional[str]:
         if any(f in kernel for f in fragments):
             return group
     return None
-
-
-def train_step_flops(config: Dict, batch: int, height: int, width: int) -> int:
-    """Model FLOPs of one training step over ``batch`` rows: 2 per
-    multiply-add of every convolution of the forward, times 3 for the
-    forward and the backward. The VO step runs DepthNet on the target and
-    PoseNet on the two (source, target) pairs of each snippet."""
-    flops = nets.forward_flops(nets.depthnet_spec(), nets.depthnet, (batch, height, width, 3))
-    if config["networks"] == "depth_pose":
-        flops += nets.forward_flops(nets.posenet_spec(), nets.posenet,
-                                    (2 * batch, height, width, 6))
-    return 3 * flops
